@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Skipped without one (the kernels have no CPU mode). This file
+imports no JAX, so it also runs where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py"""
+
+import numpy as np
+import pytest
+import torch
+
+from zprize_tpu_torch.curve import g1
+from zprize_tpu_torch.fields import kernels
+from zprize_tpu_torch.fields.mont import FR, FQ
+from zprize_tpu_torch.ops import ntt
+from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
+
+N = 4099        # ragged: not a multiple of a thread block
+
+
+def plain(fn, *args):
+    """fn(*args) through the plain PyTorch versions."""
+    with kernels.impl("plain"):
+        return fn(*args)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _field(C, n, seed, device):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 16, size=(C.L, n), dtype=np.int64)
+    a[-1] = rng.integers(0, int(C.mod_limbs[-1]), size=n)
+    for i, v in enumerate([0, 1, C.mod - 1, C.R]):
+        a[:, i] = [(v >> (16 * k)) & 0xFFFF for k in range(C.L)]
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_field_kernels_match_plain(card, field):
+    C = FR if field == "fr" else FQ
+    a, b = _field(C, N, 1, card), _field(C, N, 2, card)
+    b[:, :4] = a[:, :4].flip(1)
+    for name in ("mul", "add", "sub"):
+        fn = getattr(kernels, name)
+        assert torch.equal(fn(C.P, a, b), plain(fn, C.P, a, b)), name
+        s = b[:, :1].contiguous()       # broadcast operand, period 1
+        assert torch.equal(fn(C.P, a, s), plain(fn, C.P, a, s)), name
+    assert torch.equal(kernels.neg(C.P, a), plain(kernels.neg, C.P, a))
+
+
+@pytest.mark.cuda
+def test_butterfly_stage_matches_plain(card):
+    plan = ntt.get_plan(10, card)
+    x = _field(FR, 3 * 1024, 3, card)
+    for s in range(1, 11):
+        half = 1 << (s - 1)
+        got = kernels.butterfly_stage(FR.P, x, plan.tw, half, 1024 >> s)
+        want = plain(kernels.butterfly_stage, FR.P, x, plan.tw, half,
+                     1024 >> s)
+        assert torch.equal(got, want), s
+
+
+@pytest.mark.cuda
+def test_point_kernels_match_plain(card):
+    rng = np.random.default_rng(4)
+    pool = [g1_mul(G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 16)]
+    px, py, _ = g1.affine_points_to_device(pool, card)
+    idx = [torch.from_numpy(rng.integers(0, 16, N)).to(card)
+           for _ in range(2)]
+    ax, ay = px[:, idx[0]].contiguous(), py[:, idx[0]].contiguous()
+    bx, by = px[:, idx[1]].contiguous(), py[:, idx[1]].contiguous()
+    ax[:, 0] = 0
+    ay[:, 0] = 0
+    bx[:, 1], by[:, 1] = ax[:, 1], ay[:, 1]
+    got = g1.xyzz_add_affine2(ax, ay, bx, by)
+    assert torch.equal(got, plain(g1.xyzz_add_affine2, ax, ay, bx, by))
+    q = plain(g1.xyzz_add_affine2, bx, by, ax, ay)
+    q[:, 2] = g1.xyzz_neg(got[:, 2:3].contiguous())[:, 0]
+    assert torch.equal(g1.xyzz_add(got, q), plain(g1.xyzz_add, got, q))
+    assert torch.equal(g1.xyzz_add(got, got), plain(g1.xyzz_add, got, got))

@@ -1,0 +1,177 @@
+"""The port's curve and MSM layer (`zprize_tpu_torch.curve.g1`,
+`ops.msm`) against the JAX package: the plain versions of the point
+kernels K7/K9 vs `zprize_tpu.curve.g1` (XLA path) coordinate for
+coordinate, the MSM vs the oracle `zprize_tpu.ref.curve.g1_msm` that
+`zprize_tpu.ops.msm` is pinned to (its full window grid takes minutes to
+compile on a CPU) and its digit/capacity helpers vs `zprize_tpu.ops.msm`
+directly, and the multi-pass overflow drain. Exact comparisons."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from zprize_tpu.curve import g1 as jg1
+from zprize_tpu.ops import msm as jmsm
+from zprize_tpu.params import R_MOD, Q_MOD
+from zprize_tpu.ref.curve import G1_GEN, g1_add, g1_mul, g1_msm, g1_neg
+from zprize_tpu_torch.curve import g1
+from zprize_tpu_torch.fields.limb import ints_to_limbs
+from zprize_tpu_torch.ops import msm
+
+COORDS = ("X", "Y", "ZZ", "ZZZ")
+
+
+def _pairs():
+    P, Q = g1_mul(G1_GEN, 5), g1_mul(G1_GEN, 9)
+    rng = random.Random(3)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1 << 20)) for _ in range(6)]
+    return ([(P, Q), (P, P), (P, g1_neg(P)), (None, Q), (P, None),
+             (None, None)] + list(zip(pts[:3], pts[3:])))
+
+
+def _jstack(d):
+    return np.concatenate([np.asarray(d[k]) for k in COORDS], axis=0)
+
+
+def _eq(t, j):
+    return np.array_equal(t.numpy().astype(np.uint32), np.asarray(j))
+
+
+def test_xyzz_add_affine2_matches_jax_and_oracle():
+    pairs = _pairs()
+    ax, ay, _ = g1.affine_points_to_device([a for a, _ in pairs], "cpu")
+    bx, by, _ = g1.affine_points_to_device([b for _, b in pairs], "cpu")
+    got = g1.xyzz_add_affine2(ax, ay, bx, by)
+    jx, jy, _ = jg1.affine_points_to_device([a for a, _ in pairs])
+    kx, ky, _ = jg1.affine_points_to_device([b for _, b in pairs])
+    assert _eq(got, _jstack(jg1.xyzz_add_affine2(jx, jy, kx, ky)))
+    assert g1.xyzz_to_affine_host(got) == [g1_add(a, b) for a, b in pairs]
+
+
+def test_xyzz_add_and_double_match_jax():
+    """K7 on xyzz operands with non-trivial Z, including P == Q written
+    with two different coordinate sets, P == -Q and the identity."""
+    pairs = _pairs()
+    ax, ay, _ = g1.affine_points_to_device([a for a, _ in pairs], "cpu")
+    bx, by, _ = g1.affine_points_to_device([b for _, b in pairs], "cpu")
+    p = g1.xyzz_add_affine2(ax, ay, bx, by)         # a + b
+    q = g1.xyzz_add_affine2(bx, by, ax, ay)         # b + a, other coords
+    q[:, 2] = g1.xyzz_neg(p[:, 2:3].contiguous())[:, 0]
+    got = g1.xyzz_add(p, q)
+    jp = {k: jnp.asarray(v.numpy().astype(np.uint32))
+          for k, v in zip(COORDS, p.split(24))}
+    jq = {k: jnp.asarray(v.numpy().astype(np.uint32))
+          for k, v in zip(COORDS, q.split(24))}
+    assert _eq(got, _jstack(jg1.xyzz_add(jp, jq)))
+    # 2P: the same coordinates where P is finite; the identity (P - P in
+    # column 2) stays an identity (ZZ = 0) whatever its X, Y
+    dbl = g1.xyzz_double(p)
+    jdbl = _jstack(jg1.xyzz_double(jp))
+    fin = [i for i in range(p.shape[1]) if i != 2]
+    assert _eq(dbl[:, fin], jdbl[:, fin])
+    assert not dbl[48:72, 2].any() and not jdbl[48:72, 2].any()
+    sums = [g1_add(a, b) for a, b in pairs]
+    want = [g1_add(s, s) for s in sums]
+    want[2] = None                                    # (P - P) = O
+    assert g1.xyzz_to_affine_host(got) == want
+
+
+def test_tree_sum_and_device_affine():
+    rng = random.Random(4)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1 << 30)) for _ in range(7)]
+    pts[2] = None
+    x, y, _ = g1.affine_points_to_device(pts, "cpu")
+    tot = g1.xyzz_tree_sum(g1.xyzz_from_affine(x, y))
+    acc = None
+    for p in pts:
+        acc = g1_add(acc, p)
+    assert g1.xyzz_to_affine_host(tot[:, None]) == [acc]
+    xa, ya = g1.xyzz_to_affine_device(g1.xyzz_from_affine(x, y))
+    assert torch.equal(xa, x) and torch.equal(ya, y)
+
+
+def _raw(scalars):
+    return torch.from_numpy(
+        ints_to_limbs([s % (1 << 256) for s in scalars], 16).T.copy()
+        .astype(np.int32))
+
+
+@pytest.mark.parametrize("window_bits", [4, 8])
+def test_msm_matches_oracle(window_bits):
+    rng = random.Random(5)
+    n = 64
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1000)) for _ in range(n)]
+    pts[7] = None
+    pts[10] = pts[11]                    # equal points in one bucket
+    scalars = [rng.randrange(R_MOD) for _ in range(n)]
+    scalars[3] = 0
+    scalars[5] = 1
+    dev = g1.affine_points_to_device(pts, "cpu")
+    assert msm.msm(dev, _raw(scalars), window_bits) == g1_msm(pts, scalars)
+    assert msm.msm(dev, _raw([0] * n), window_bits) is None
+
+
+def test_msm_helpers_match_jax():
+    for n in (1, 100, 1 << 9, 1 << 13, 1 << 19, 1 << 22):
+        assert msm.auto_window_bits(n) == jmsm.auto_window_bits(n)
+        for wb in (4, 8, 16):
+            assert msm.bucket_capacity(n, wb) == jmsm.bucket_capacity(n, wb)
+    scalars = [random.Random(6).randrange(R_MOD) for _ in range(33)]
+    raw = _raw(scalars)
+    for wb in (2, 4, 8, 16):
+        want = jmsm.limbs16_to_digits(jnp.asarray(
+            raw.numpy().astype(np.uint32)), wb)
+        got = msm.limbs16_to_digits(raw, wb)
+        assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def _skewed():
+    """One scalar repeated for 48 of 64 points: its digit fills the same
+    bucket in every window, far beyond a capacity of 8."""
+    rng = random.Random(7)
+    n = 64
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1000)) for _ in range(n)]
+    s_rep = rng.randrange(R_MOD)
+    scalars = [s_rep] * 48 + [rng.randrange(R_MOD) for _ in range(n - 48)]
+    return pts, scalars
+
+
+def test_msm_overflow_drained_by_extra_passes():
+    pts, scalars = _skewed()
+    stats = {}
+    got = msm.msm(g1.affine_points_to_device(pts, "cpu"), _raw(scalars),
+                  window_bits=4, capacity=8, stats=stats)
+    assert got == g1_msm(pts, scalars)
+    assert stats["passes"] >= 6                       # 48 / 8 slots
+
+
+def test_msm_undrained_overflow_raises():
+    pts, scalars = _skewed()
+    x, y, _ = g1.affine_points_to_device(pts, "cpu")
+    digits = msm.limbs16_to_digits(_raw(scalars), 4)
+    with pytest.raises(RuntimeError, match="overflow not drained"):
+        msm.msm_window_grid(x, y, digits, 4, 8, max_passes=3)
+
+
+def test_affine_identity_encoding():
+    x, y, inf = g1.affine_points_to_device([None, G1_GEN], "cpu")
+    assert inf.tolist() == [True, False]
+    assert g1.is_identity(g1.xyzz_from_affine(x, y)).tolist() == \
+        [True, False]
+    assert g1.xyzz_to_affine_host(g1.xyzz_from_affine(x, y)) == \
+        [None, (G1_GEN[0] % Q_MOD, G1_GEN[1])]
+
+
+def test_device_srs_matches_spec_setup():
+    """The windowed fixed-base SRS equals the spec's powers of tau."""
+    from zprize_tpu.ref.kzg import SRS
+    from zprize_tpu_torch.protocol.srs import device_srs
+    (x, y, inf), lite, tau = device_srs(20, tau=123456789, device="cpu")
+    ref = SRS.setup(20, tau=123456789)
+    assert g1.xyzz_to_affine_host(g1.xyzz_from_affine(x, y)) == \
+        ref.powers_of_g
+    assert not inf.any()
+    assert (lite.h, lite.beta_h) == (ref.h, ref.beta_h)

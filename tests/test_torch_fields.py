@@ -1,0 +1,130 @@
+"""The port's field layer (`zprize_tpu_torch.fields`) against the JAX
+package: the plain PyTorch versions of the kernels vs
+`zprize_tpu.fields.mont` (XLA path on the CPU) and vs the Pallas kernels of
+`zprize_tpu.fields.pkern` in interpret mode. Inputs come from a numpy
+seed; every comparison is exact (integer field arithmetic)."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from zprize_tpu.fields import mont as jmont
+from zprize_tpu.fields import pkern
+from zprize_tpu.fields.mont import FR as JFR, FQ as JFQ
+from zprize_tpu_torch.fields import kernels, mont
+from zprize_tpu_torch.fields.mont import FR, FQ
+
+FIELDS = {"fr": (FR, JFR), "fq": (FQ, JFQ)}
+N = 67          # ragged: not a multiple of any block width
+
+
+def _ints(C, n, seed):
+    rng = np.random.default_rng(seed)
+    xs = [int.from_bytes(rng.bytes(2 * C.L), "little") % C.mod
+          for _ in range(n - 4)]
+    return [0, 1, C.mod - 1, C.R % C.mod] + xs
+
+
+def _pair(C, JC, seed):
+    xs, ys = _ints(C, N, seed), _ints(C, N, seed + 1)
+    ys[:4] = [C.mod - 1, 0, C.mod - 1, 1]
+    a_np, b_np = JC.to_mont_host(xs), JC.to_mont_host(ys)
+    return (xs, ys, a_np, b_np, torch.from_numpy(a_np.astype(np.int32)),
+            torch.from_numpy(b_np.astype(np.int32)))
+
+
+def _eq(t, j):
+    return np.array_equal(t.numpy().astype(np.uint32), np.asarray(j))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_host_conversions_match(field):
+    C, JC = FIELDS[field]
+    xs = _ints(C, N, 3)
+    assert np.array_equal(C.to_mont_host(xs), JC.to_mont_host(xs))
+    assert C.from_mont_host(JC.to_mont_host(xs)) == xs
+    assert np.array_equal(C.scalar_mont(xs[7]), JC.scalar_mont(xs[7]))
+    t = C.tensor(xs, "cpu")
+    assert t.dtype == torch.int32 and _eq(t, JC.to_mont_host(xs))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_plain_ops_match_jax_xla(field):
+    C, JC = FIELDS[field]
+    xs, ys, a_np, b_np, a, b = _pair(C, JC, 10)
+    ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
+    assert _eq(mont.mont_mul(C, a, b), jmont.mont_mul(JC, ja, jb))
+    assert _eq(mont.add(C, a, b), jmont.add(JC, ja, jb))
+    assert _eq(mont.sub(C, a, b), jmont.sub(JC, ja, jb))
+    assert _eq(mont.neg(C, a), jmont.neg(JC, ja))
+    assert _eq(mont.to_mont(C, a), jmont.to_mont(JC, ja))
+    assert _eq(mont.from_mont(C, a), jmont.from_mont(JC, ja))
+    M = C.mod
+    assert C.from_mont_host(mont.mont_mul(C, a, b)) == \
+        [x * y % M for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_plain_ops_match_pallas_interpret(field):
+    C, JC = FIELDS[field]
+    _, _, a_np, b_np, a, b = _pair(C, JC, 20)
+    ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
+    assert _eq(kernels.mul(C.P, a, b), pkern.mul(JC.K, ja, jb,
+                                                 interpret=True))
+    assert _eq(kernels.add(C.P, a, b), pkern.add(JC.K, ja, jb,
+                                                 interpret=True))
+    assert _eq(kernels.sub(C.P, a, b), pkern.sub(JC.K, ja, jb,
+                                                 interpret=True))
+    assert _eq(kernels.neg(C.P, a), pkern.neg(JC.K, ja, interpret=True))
+
+
+def test_butterfly_stage_matches_pallas_mul_add_sub():
+    """K5's plain version on one block (half = n: u = first half, v =
+    second, w at step 1) equals pkern.mul_add_sub(u, v, w)."""
+    _, _, u_np, v_np, u, v = _pair(FR, JFR, 30)
+    _, _, w_np, _, w, _ = _pair(FR, JFR, 40)
+    out = kernels.butterfly_stage(FR.P, torch.cat([u, v], dim=1), w, N, 1)
+    hi, lo = pkern.mul_add_sub(JFR.K, jnp.asarray(u_np), jnp.asarray(v_np),
+                               jnp.asarray(w_np), interpret=True)
+    assert _eq(out[:, :N], hi) and _eq(out[:, N:], lo)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_broadcasting_matches_jax(field):
+    C, JC = FIELDS[field]
+    _, _, a_np, b_np, a, b = _pair(C, JC, 50)
+    a3 = a[:, :60].reshape(C.L, 3, 20)
+    b1 = b[:, :20].reshape(C.L, 1, 20)
+    s = b[:, 5]
+    ja3 = jnp.asarray(a_np[:, :60].reshape(C.L, 3, 20))
+    jb1 = jnp.asarray(b_np[:, :20].reshape(C.L, 1, 20))
+    assert _eq(mont.mont_mul(C, a3, b1), jmont.mont_mul(JC, ja3, jb1))
+    assert _eq(mont.add(C, a3, s), jmont.add(JC, ja3, jnp.asarray(
+        b_np[:, 5])))
+    col = b[:, :3].reshape(C.L, 3, 1)
+    assert _eq(mont.sub(C, a3, col), jmont.sub(
+        JC, ja3, jnp.asarray(b_np[:, :3].reshape(C.L, 3, 1))))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_batch_inv_and_product_tree(field):
+    C, JC = FIELDS[field]
+    xs, _, a_np, _, a, _ = _pair(C, JC, 60)
+    inv = mont.batch_inv(C, a)
+    assert _eq(inv, jmont.batch_inv(JC, jnp.asarray(a_np)))
+    assert C.from_mont_host(inv) == [pow(x, -1, C.mod) if x else 0
+                                     for x in xs]
+    nz = a[:, 1:]
+    tot = mont.prod_tree_total(C, nz)
+    assert _eq(tot, jmont.prod_tree_total(JC, jnp.asarray(a_np[:, 1:])))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    kernels.reset_counts()
+    a = FR.tensor([1, 2, 3], "cpu")
+    mont.mont_mul(FR, a, a)
+    mont.neg(FR, a)
+    assert not kernels.use_kernel(a)
+    assert all(v == 0 for v in kernels.COUNTS.values())
+

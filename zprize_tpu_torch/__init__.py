@@ -1,0 +1,20 @@
+"""zprize_tpu_torch — the PLONK prover of `zprize_tpu`, ported to PyTorch
+with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+
+Layout mirrors `zprize_tpu` so each module's counterpart is easy to find:
+
+  fields/    — 16-bit-limb Montgomery Fr/Fq arithmetic on (L, n) tensors;
+               `fields/kernels.py` binds the CUDA kernels in `csrc/` and
+               keeps a plain PyTorch version of each beside it.
+  ops/       — powers/evaluation/scans, NTT, Pippenger MSM.
+  curve/     — BLS12-381 G1 in xyzz coordinates.
+  protocol/  — SRS, the 5-round prover, widgets, proof/transcript spec.
+  poseidon/, merkle/ — batched Poseidon witness, tiled Merkle layout.
+  ref/, transcript/, circuit/ — host-side executable spec, copied from
+               `zprize_tpu` so this package imports neither JAX nor it.
+
+Entry points (`device_srs`, `MerkleLayout`, `preprocess_layout`,
+`prove_torch`) run on CUDA unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"

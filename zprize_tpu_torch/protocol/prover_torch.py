@@ -1,0 +1,557 @@
+"""The 5-round PLONK prover on limbs-leading (L, n) torch tensors — the
+port of `zprize_tpu/protocol/prover_tpu.py`, round for round and
+transcript byte for byte, so its proofs equal the executable spec's
+(`ref/prover.py` of the JAX package).
+
+The quotient round processes the 8n coset domain as 8 sub-cosets of size n
+(`ops/ntt.SubcosetTables`): every selector's evaluations are recomputed per
+sub-coset from coefficient form, so no (L, 8, n) table is kept. The host
+keeps Fiat-Shamir, two 64-byte inversions, the linearisation scalars and
+the MSM window folds.
+
+This slice covers the degenerate-lookup circuits (q_lookup == 0 and an
+empty table, as in the Merkle circuit); a key with a real lookup table is
+refused. The `msm_backend="host"` branch of the JAX prover is not ported.
+"""
+
+import time
+
+import torch
+
+from ..params import R_MOD, K1, K2, K3, JUBJUB_A, JUBJUB_D
+from ..device import resolve
+from ..fields import mont, kernels
+from ..fields.mont import FR
+from ..fields.frvec import FV
+from ..ops import ntt as tntt
+from ..ops import poly as tpoly
+from ..ops import msm as tmsm
+from ..curve import g1
+from .proof import Proof, Evaluations
+from . import widgets_torch as W
+from .widgets import (range_constraint, logic_constraint, fbsm_constraint,
+                      ca_constraint, lc)
+
+M = R_MOD
+
+SELECTOR_NAMES = [
+    "q_m", "q_l", "q_r", "q_o", "q_4", "q_c", "q_hl", "q_hr", "q_h4",
+    "q_arith", "q_range", "q_logic", "q_lookup", "q_fixed_group_add",
+    "q_variable_group_add",
+]
+
+
+class ProverConfig:
+    """device: where the prover runs (CUDA unless "cpu" is given).
+    impl: "kernel" (default) or "plain" — run the CUDA tensors through the
+    plain PyTorch versions instead of the kernels (comparison runs only).
+    commit_passes: every commit appends its MSM drain pass count here.
+    log: optional callable; when set, every round ends by pulling one
+    element to the host and logs its seconds (an attributable breakdown,
+    at the cost of one sync per round)."""
+
+    def __init__(self, device=None, impl="kernel", log=None):
+        self.device = resolve(device)
+        self.impl = impl
+        self.log = log
+        self.commit_passes = []
+
+
+class DevSRS:
+    """SRS points on the device: (x (L, N), y (L, N), inf (N,)), identity
+    (0, 0); `ref` carries h / beta_h for the verifier."""
+
+    def __init__(self, points, ref):
+        self.points = points
+        self.ref = ref
+        self.size = points[0].shape[1]
+
+
+class DevProverKey:
+    """Selector/sigma COEFFICIENT polys plus the sigma n-domain evals, all
+    (L, n) int32 on the device."""
+
+    lookup_degenerate = False
+
+
+class ProverWitness:
+    """Wire value columns in evaluation form ((L, n) Montgomery tensors),
+    sparse public inputs {gate: value}, and the q_lookup == 0 mask."""
+
+    def __init__(self, wires_dev, public_inputs, q_lookup_zero_mask=None):
+        self.wires_dev = wires_dev
+        self.public_inputs = public_inputs
+        self.q_lookup_zero_mask = q_lookup_zero_mask
+
+
+# ---------------------------------------------------------------------------
+# commitments
+# ---------------------------------------------------------------------------
+
+def commit_batch(dev_srs, polys, cfg):
+    """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
+    points. Records each commit's MSM pass count in cfg.commit_passes."""
+    n = polys.shape[2]
+    wb = tmsm.auto_window_bits(n)
+    x = dev_srs.points[0][:, :n].contiguous()
+    y = dev_srs.points[1][:, :n].contiguous()
+    raw = mont.from_mont(FR, polys)
+    out = []
+    for b in range(polys.shape[1]):
+        stats = {}
+        wpts = tmsm.msm_windows(x, y, raw[:, b], wb, stats=stats)
+        cfg.commit_passes.append(stats["passes"])
+        out.append(tmsm.fold_windows_host(g1.xyzz_to_affine_host(wpts), wb))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# round programs
+# ---------------------------------------------------------------------------
+
+def _z_parts(roots, wires, sigma_evals, beta, gamma, delta, eps):
+    """Numerators/denominators + denominator totals of the two grand
+    products. Degenerate lookup: f = t = h1 = h2 = 0."""
+    betaF, gammaF = FV(beta[:, None]), FV(gamma[:, None])
+    rootsF = FV(roots)
+    ks = [FV.const(k) for k in (1, K1, K2, K3)]
+    numv = denv = None
+    for w in range(4):
+        wv = FV(wires[:, w])
+        sv = FV(sigma_evals[:, w])
+        nterm = wv + betaF * ks[w] * rootsF + gammaF
+        dterm = wv + betaF * sv + gammaF
+        numv = nterm if numv is None else numv * nterm
+        denv = dterm if denv is None else denv * dterm
+
+    one = FV.one()
+    opd = FV(delta[:, None]) + one
+    epsF = FV(eps[:, None])
+    eps_opd = epsF * opd
+    n = roots.shape[-1]
+    zero = FV(torch.zeros_like(roots))
+    fv = tv = h1v = h2v = zero
+    deltaF = FV(delta[:, None])
+    num2 = opd * (epsF + fv) * (eps_opd + tv + deltaF * tv.roll(1))
+    den2 = (eps_opd + h1v + h2v * deltaF) * \
+        (eps_opd + h2v + h1v.roll(1) * deltaF)
+    assert num2.v.shape[-1] == n
+    tot_z = mont.prod_tree_total(FR, denv.v)
+    tot_2 = mont.prod_tree_total(FR, den2.v)
+    return numv.v, denv.v, tot_z, num2.v, den2.v, tot_2
+
+
+def _z_finish(plan, num, den, inv_total):
+    """ratios -> shifted prefix product -> INTT (z / z2 polynomial)."""
+    dinv = mont.inv_apply(FR, den, inv_total)
+    ratios = mont.mont_mul(FR, num, dinv)
+    evals = tpoly.prefix_product(FR, ratios, shift_one=True)
+    return tntt.intt(plan, evals)
+
+
+def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, ch):
+    """quotient_poly.rs compute(), one sub-coset at a time. All inputs are
+    coefficient-form (L, n); ch maps names to (L,) challenges. Returns the
+    8 quotient chunk polys (L, 8, n)."""
+    n = wl.shape[-1]
+    L = FR.L
+    dev = wl.device
+    l1c = plan.n_inv[:, None].expand(L, n)
+    base_st = torch.stack([wl, wr, wo, w4, z, z2, pi, l1c], dim=1)
+    arith_names = ["q_arith", "q_m", "q_l", "q_r", "q_o", "q_4", "q_c",
+                   "q_hl", "q_hr", "q_h4"]
+    other_names = ["q_range", "q_logic", "q_lookup", "q_fixed_group_add",
+                   "q_variable_group_add"]
+    arith_st = torch.stack([pk.sel_poly[k] for k in arith_names], dim=1)
+    other_st = torch.stack([pk.sel_poly[k] for k in other_names], dim=1)
+    sigma_st = torch.stack(pk.sigma_poly, dim=1)
+    roots = sct.roots
+
+    def c(name):
+        return FV(ch[name][:, None])
+
+    acc = torch.zeros((L, 8, n), dtype=torch.int32, device=dev)
+    for j in range(8):
+        shift = sct.shift_pows[:, j]
+        shift_inv = sct.shift_inv_pows[:, j]
+
+        def evals(st):
+            return tntt.ntt(plan, mont.mont_mul(FR, st, shift[:, None, :]))
+
+        E = evals(base_st)
+
+        def ev(i):
+            return FV(E[:, i])
+
+        def nxt(i):
+            return FV(torch.roll(E[:, i], -1, dims=-1))
+
+        a, b, cw, d = ev(0), ev(1), ev(2), ev(3)
+        a_n, b_n, d_n = nxt(0), nxt(1), nxt(3)
+        zF, z_n = ev(4), nxt(4)
+        z2F, z2_n = ev(5), nxt(5)
+        piF = ev(6)
+        l1F = ev(7)
+
+        Ea = evals(arith_st)
+        sel_a = {k: FV(Ea[:, i]) for i, k in enumerate(arith_names)}
+        arith = W.arithmetic_constraint(
+            sel_a["q_arith"], sel_a["q_m"], sel_a["q_l"], sel_a["q_r"],
+            sel_a["q_o"], sel_a["q_4"], sel_a["q_c"], sel_a["q_hl"],
+            sel_a["q_hr"], sel_a["q_h4"], a, b, cw, d)
+        q_l, q_r, q_c = sel_a["q_l"], sel_a["q_r"], sel_a["q_c"]
+        del Ea, sel_a
+
+        Eo = evals(other_st)
+        sel_o = {k: FV(Eo[:, i]) for i, k in enumerate(other_names)}
+        rng = sel_o["q_range"] * W.range_constraint(
+            c("range"), a, b, cw, d, d_n)
+        lgc = sel_o["q_logic"] * W.logic_constraint(
+            c("logic"), a, b, cw, d, a_n, b_n, d_n, q_c)
+        fbsm = sel_o["q_fixed_group_add"] * W.fbsm_constraint(
+            c("fbsm"), a, b, cw, d, a_n, b_n, d_n, q_l, q_r,
+            q_c, FV.const(JUBJUB_A), FV.const(JUBJUB_D))
+        ca = sel_o["q_variable_group_add"] * W.ca_constraint(
+            c("ca"), a, b, cw, d, a_n, b_n, d_n,
+            FV.const(JUBJUB_A), FV.const(JUBJUB_D))
+        gate = arith + piF + rng + lgc + fbsm + ca
+        q_lookup = sel_o["q_lookup"]
+        del Eo, sel_o, rng, lgc, fbsm, ca, arith
+
+        Eg = evals(sigma_st)
+        sig = [FV(Eg[:, i]) for i in range(4)]
+        xF = FV(mont.mont_mul(FR, shift[:, 1:2], roots))
+        alpha = c("alpha")
+        l1_alpha_sq = l1F * alpha * alpha
+        perm = W.permutation_quotient_term(
+            xF, sig[0], sig[1], sig[2], sig[3], a, b, cw, d,
+            zF, z_n, alpha, l1_alpha_sq, c("beta"), c("gamma"),
+            FV.const(K1), FV.const(K2), FV.const(K3))
+        del Eg, sig
+
+        # degenerate lookup: f = t = h1 = h2 = 0 (widgets_jax algebra)
+        ls = c("lookup")
+        ls2 = ls.sqr()
+        ls3 = ls2 * ls
+        one = FV.one()
+        opd = c("delta") + one
+        epsF = c("epsilon")
+        eps_opd = epsF * opd
+        compressed = W.lc4(a, b, cw, d, c("zeta"))
+        term_a = q_lookup * compressed * ls
+        term_b = z2F * (opd * epsF * eps_opd) * ls2
+        term_c = -(z2_n * eps_opd * eps_opd * ls2)
+        term_d = (z2F - one) * l1F * ls3
+        lkp = term_a + term_b + term_c + term_d
+
+        numer = gate + perm + lkp
+        Q = mont.mont_mul(FR, numer.v, sct.vh_inv[:, j:j + 1])
+        D = mont.mont_mul(FR, tntt.intt(plan, Q), shift_inv)
+        contrib = mont.mont_mul(FR, D[:, None, :],
+                                sct.combine_c[:, :, j][:, :, None])
+        acc = mont.add(FR, acc, contrib)
+        del E, numer, Q, D, contrib
+    return acc
+
+
+def _eval_at(stack, point):
+    """Evaluate K polys (L, K, n) at one point (L,) -> (L, K)."""
+    n = stack.shape[-1]
+    pows = tpoly.powers(FR, point, n)
+    return tpoly.sum_last(FR, mont.mont_mul(FR, stack, pows[:, None, :]))
+
+
+def _lincomb(stack, coeffs):
+    """sum_k coeffs[:, k] * stack[:, k, :] -> (L, n)."""
+    prods = mont.mont_mul(FR, stack, coeffs[:, :, None])
+    return tpoly.sum_last(FR, prods.transpose(1, 2))
+
+
+def _open(stack, coeffs, point):
+    """chi-aggregation + synthetic division by (X - point), padded back to
+    n coefficients."""
+    q, _ = tpoly.divide_linear(FR, _lincomb(stack, coeffs), point)
+    return torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the prover
+# ---------------------------------------------------------------------------
+
+def prove_torch(witness: ProverWitness, dev_pk: DevProverKey,
+                dev_srs: DevSRS, transcript, cfg: ProverConfig = None):
+    """Counterpart of `prove_tpu`: returns a `Proof` byte-identical to the
+    spec's. Runs on cfg.device (CUDA unless "cpu" was asked for)."""
+    cfg = cfg or ProverConfig()
+    with kernels.impl(cfg.impl):
+        return _prove(witness, dev_pk, dev_srs, transcript, cfg)
+
+
+def _round_marker(cfg):
+    state = {"t": time.time()}
+
+    def mark(label, arr):
+        if cfg.log is None:
+            return
+        arr.reshape(-1)[:1].cpu()
+        now = time.time()
+        cfg.log(f"prove {label}: {now - state['t']:.3f}s")
+        state["t"] = now
+    return mark
+
+
+def _prove(witness, dev_pk, dev_srs, transcript, cfg):
+    if not dev_pk.lookup_degenerate:
+        raise NotImplementedError(
+            "only degenerate-lookup keys (q_lookup == 0, empty table) are "
+            "ported; the real-lookup combine_split branch is not")
+    dev = cfg.device
+    n = dev_pk.n
+    log_n = dev_pk.log_n
+    plan = tntt.get_plan(log_n, dev)
+    sct = tntt.get_subcoset_tables(log_n, dev)
+    t = transcript
+    mark = _round_marker(cfg)
+
+    def scal(x):
+        return FR.scalar(x, dev)
+
+    t.append_pi(b"pi", witness.public_inputs)
+
+    # ------------------------------------------------------------- round 1
+    pi_col = torch.zeros((FR.L, n), dtype=torch.int32, device=dev)
+    if witness.public_inputs:
+        pos = torch.tensor(list(witness.public_inputs.keys()),
+                           dtype=torch.int64, device=dev)
+        vals = FR.tensor([v % M for v in witness.public_inputs.values()],
+                         dev)
+        pi_col[:, pos] = vals
+    wires5 = torch.stack(list(witness.wires_dev) + [pi_col], dim=1)
+    wires = wires5[:, :4]
+    polys5 = tntt.intt(plan, wires5)
+    wire_polys, pi_poly = polys5[:, :4], polys5[:, 4]
+    w_comms = commit_batch(dev_srs, wire_polys, cfg)
+    for label, c in zip((b"w_l", b"w_r", b"w_o", b"w_4"), w_comms):
+        t.append_g1(label, c)
+
+    mark("round1 (wires intt + 4 commits)", wire_polys)
+
+    # ------------------------------------------------------------- round 2
+    zeta_i = t.challenge_scalar(b"zeta")
+    t.append_fr(b"zeta", zeta_i)
+    # all-zero table & q_lookup: f = t = h1 = h2 = 0 and their
+    # commitments are the identity (gen_proof.cuh:107-115 shortcut)
+    zero_poly = torch.zeros((FR.L, n), dtype=torch.int32, device=dev)
+    table_poly = f_poly = h_1_poly = h_2_poly = zero_poly
+    t.append_g1(b"f", None)
+    t.append_g1(b"h1", None)
+    t.append_g1(b"h2", None)
+
+    # ------------------------------------------------------------- round 3
+    beta_i = t.challenge_scalar(b"beta")
+    t.append_fr(b"beta", beta_i)
+    gamma_i = t.challenge_scalar(b"gamma")
+    t.append_fr(b"gamma", gamma_i)
+    delta_i = t.challenge_scalar(b"delta")
+    t.append_fr(b"delta", delta_i)
+    epsilon_i = t.challenge_scalar(b"epsilon")
+    t.append_fr(b"epsilon", epsilon_i)
+    assert len({beta_i, gamma_i, delta_i, epsilon_i}) == 4
+
+    sigma_evals = torch.stack(dev_pk.sigma_evals_n, dim=1)
+    num_z, den_z, tot_z, num_2, den_2, tot_2 = _z_parts(
+        sct.roots, wires, sigma_evals, scal(beta_i), scal(gamma_i),
+        scal(delta_i), scal(epsilon_i))
+    z_poly = _z_finish(plan, num_z, den_z, mont.host_inverse(FR, tot_z))
+    z_2_poly = _z_finish(plan, num_2, den_2, mont.host_inverse(FR, tot_2))
+    del num_z, den_z, num_2, den_2
+    z_comm, z_2_comm = commit_batch(
+        dev_srs, torch.stack([z_poly, z_2_poly], dim=1), cfg)
+    t.append_g1(b"z", z_comm)
+    mark("round3 (grand products + 2 commits)", z_2_poly)
+
+    # ------------------------------------------------------------- round 4
+    alpha_i = t.challenge_scalar(b"alpha")
+    t.append_fr(b"alpha", alpha_i)
+    range_i = t.challenge_scalar(b"range separation challenge")
+    t.append_fr(b"range seperation challenge", range_i)
+    logic_i = t.challenge_scalar(b"logic separation challenge")
+    t.append_fr(b"logic seperation challenge", logic_i)
+    fbsm_i = t.challenge_scalar(b"fixed base separation challenge")
+    t.append_fr(b"fixed base separation challenge", fbsm_i)
+    ca_i = t.challenge_scalar(b"variable base separation challenge")
+    t.append_fr(b"variable base separation challenge", ca_i)
+    lookup_i = t.challenge_scalar(b"lookup separation challenge")
+    t.append_fr(b"lookup separation challenge", lookup_i)
+
+    ch = {"alpha": scal(alpha_i), "beta": scal(beta_i),
+          "gamma": scal(gamma_i), "delta": scal(delta_i),
+          "epsilon": scal(epsilon_i), "zeta": scal(zeta_i),
+          "range": scal(range_i), "logic": scal(logic_i),
+          "fbsm": scal(fbsm_i), "ca": scal(ca_i), "lookup": scal(lookup_i)}
+    t_stack = _quotient(plan, sct, dev_pk, wire_polys[:, 0],
+                        wire_polys[:, 1], wire_polys[:, 2], wire_polys[:, 3],
+                        z_poly, z_2_poly, pi_poly, ch)
+    mark("round4 quotient", t_stack)
+    t_comms = commit_batch(dev_srs, t_stack, cfg)
+    for i in range(8):
+        t.append_g1(b"t_" + str(i + 1).encode(), t_comms[i])
+    mark("round4 (8 commits)", t_stack)
+
+    # ------------------------------------------------------------- round 5
+    z_ch_i = t.challenge_scalar(b"z")
+    t.append_fr(b"z", z_ch_i)
+    shifted_i = z_ch_i * plan.omega % M
+
+    sp = dev_pk.sel_poly
+    at_z_polys = [wire_polys[:, 0], wire_polys[:, 1], wire_polys[:, 2],
+                  wire_polys[:, 3],
+                  dev_pk.sigma_poly[0], dev_pk.sigma_poly[1],
+                  dev_pk.sigma_poly[2],
+                  sp["q_arith"], sp["q_lookup"], sp["q_c"], sp["q_l"],
+                  sp["q_r"], sp["q_hl"], sp["q_hr"], sp["q_h4"],
+                  h_1_poly, h_2_poly, f_poly, table_poly]
+    at_sz_polys = [z_poly, wire_polys[:, 0], wire_polys[:, 1],
+                   wire_polys[:, 3], z_2_poly, h_1_poly, table_poly]
+    evs_z = _eval_at(torch.stack(at_z_polys, dim=1), scal(z_ch_i))
+    evs_sz = _eval_at(torch.stack(at_sz_polys, dim=1), scal(shifted_i))
+    ints = FR.from_mont_host(torch.cat([evs_z, evs_sz], dim=1))
+    (a_eval, b_eval, c_eval, d_eval, ls_eval, rs_eval, os_eval, q_arith_eval,
+     q_lookup_eval, q_c_eval, q_l_eval, q_r_eval, q_hl_eval, q_hr_eval,
+     q_h4_eval, h1_eval, h2_eval, f_eval, table_eval) = ints[:19]
+    (perm_eval, a_next_eval, b_next_eval, d_next_eval, z2_next_eval,
+     h1_next_eval, table_next_eval) = ints[19:]
+
+    vanishing_eval = (pow(z_ch_i, n, M) - 1) % M
+    z_to_n = (vanishing_eval + 1) % M
+    l1_eval = vanishing_eval * pow(n * ((z_ch_i - 1) % M) % M, -1, M) % M
+
+    evaluations = Evaluations(
+        a_eval=a_eval, b_eval=b_eval, c_eval=c_eval, d_eval=d_eval,
+        left_sigma_eval=ls_eval, right_sigma_eval=rs_eval,
+        out_sigma_eval=os_eval, permutation_eval=perm_eval,
+        q_lookup_eval=q_lookup_eval, z2_next_eval=z2_next_eval,
+        h1_eval=h1_eval, h1_next_eval=h1_next_eval, h2_eval=h2_eval,
+        f_eval=f_eval, table_eval=table_eval,
+        table_next_eval=table_next_eval,
+        custom_evals=[
+            ("q_arith_eval", q_arith_eval), ("q_c_eval", q_c_eval),
+            ("q_l_eval", q_l_eval), ("q_r_eval", q_r_eval),
+            ("q_hl_eval", q_hl_eval), ("q_hr_eval", q_hr_eval),
+            ("q_h4_eval", q_h4_eval), ("a_next_eval", a_next_eval),
+            ("b_next_eval", b_next_eval), ("d_next_eval", d_next_eval),
+        ])
+
+    ev = evaluations
+    t.append_fr(b"a_eval", ev.a_eval)
+    t.append_fr(b"b_eval", ev.b_eval)
+    t.append_fr(b"c_eval", ev.c_eval)
+    t.append_fr(b"d_eval", ev.d_eval)
+    t.append_fr(b"left_sig_eval", ev.left_sigma_eval)
+    t.append_fr(b"right_sig_eval", ev.right_sigma_eval)
+    t.append_fr(b"out_sig_eval", ev.out_sigma_eval)
+    t.append_fr(b"perm_eval", ev.permutation_eval)
+    t.append_fr(b"f_eval", ev.f_eval)
+    t.append_fr(b"q_lookup_eval", ev.q_lookup_eval)
+    t.append_fr(b"lookup_perm_eval", ev.z2_next_eval)
+    t.append_fr(b"h_1_eval", ev.h1_eval)
+    t.append_fr(b"h_1_next_eval", ev.h1_next_eval)
+    t.append_fr(b"h_2_eval", ev.h2_eval)
+    for label, value in ev.custom_evals:
+        t.append_fr(label.encode(), value)
+
+    # linearisation: scalar coefficients on the host (exact spec
+    # formulas), one device linear combination
+    lin_terms = []
+
+    def add_term(poly, coeff):
+        lin_terms.append((poly, coeff % M))
+
+    ab = a_eval * b_eval % M
+    add_term(sp["q_m"], ab * q_arith_eval)
+    add_term(sp["q_l"], a_eval * q_arith_eval)
+    add_term(sp["q_r"], b_eval * q_arith_eval)
+    add_term(sp["q_o"], c_eval * q_arith_eval)
+    add_term(sp["q_4"], d_eval * q_arith_eval)
+    add_term(sp["q_hl"], pow(a_eval, 5, M) * q_arith_eval)
+    add_term(sp["q_hr"], pow(b_eval, 5, M) * q_arith_eval)
+    add_term(sp["q_h4"], pow(d_eval, 5, M) * q_arith_eval)
+    add_term(sp["q_c"], q_arith_eval)
+    add_term(sp["q_range"], range_constraint(
+        range_i, a_eval, b_eval, c_eval, d_eval, d_next_eval))
+    add_term(sp["q_logic"], logic_constraint(
+        logic_i, a_eval, b_eval, c_eval, d_eval, a_next_eval, b_next_eval,
+        d_next_eval, q_c_eval))
+    add_term(sp["q_fixed_group_add"], fbsm_constraint(
+        fbsm_i, a_eval, b_eval, c_eval, d_eval, a_next_eval, b_next_eval,
+        d_next_eval, q_l_eval, q_r_eval, q_c_eval))
+    add_term(sp["q_variable_group_add"], ca_constraint(
+        ca_i, a_eval, b_eval, c_eval, d_eval, a_next_eval, b_next_eval,
+        d_next_eval))
+
+    ls2 = lookup_i * lookup_i % M
+    ls3 = ls2 * lookup_i % M
+    opd = (delta_i + 1) % M
+    eps_opd = epsilon_i * opd % M
+    compressed = lc([a_eval, b_eval, c_eval, d_eval], zeta_i)
+    add_term(sp["q_lookup"], (compressed - f_eval) % M * lookup_i % M)
+    b0 = (epsilon_i + f_eval) % M
+    b1 = (eps_opd + table_eval + delta_i * table_next_eval) % M
+    b2 = l1_eval * ls3 % M
+    add_term(z_2_poly, (opd * b0 % M * b1 % M * ls2 + b2) % M)
+    c0 = (-z2_next_eval) % M * ls2 % M
+    c1 = (eps_opd + h2_eval + delta_i * h1_next_eval) % M
+    add_term(h_1_poly, c0 * c1 % M)
+
+    beta_z = beta_i * z_ch_i % M
+    a0 = (a_eval + beta_z + gamma_i) % M
+    a1 = (b_eval + K1 * beta_z + gamma_i) % M
+    a2 = (c_eval + K2 * beta_z + gamma_i) % M
+    a3 = (d_eval + K3 * beta_z + gamma_i) % M
+    ident = a0 * a1 % M * a2 % M * a3 % M * alpha_i % M
+    add_term(z_poly, (ident + l1_eval * (alpha_i * alpha_i % M)) % M)
+    s0 = (a_eval + beta_i * ls_eval + gamma_i) % M
+    s1 = (b_eval + beta_i * rs_eval + gamma_i) % M
+    s2 = (c_eval + beta_i * os_eval + gamma_i) % M
+    copy = s0 * s1 % M * s2 % M * beta_i % M * perm_eval % M * alpha_i % M
+    add_term(dev_pk.sigma_poly[3], (-copy) % M)
+
+    zn_pow = 1
+    for i in range(8):
+        add_term(t_stack[:, i], (-vanishing_eval) % M * zn_pow % M)
+        zn_pow = zn_pow * z_to_n % M
+
+    lin_poly = _lincomb(torch.stack([p for p, _ in lin_terms], dim=1),
+                        FR.tensor([c for _, c in lin_terms], dev))
+
+    mark("round5 (evaluations + linearisation)", lin_poly)
+
+    # ------------------------------------------------------------ openings
+    aw_i = t.challenge_scalar(b"aggregate_witness")
+    aw_polys = [lin_poly, dev_pk.sigma_poly[0], dev_pk.sigma_poly[1],
+                dev_pk.sigma_poly[2], f_poly, h_2_poly, table_poly,
+                wire_polys[:, 0], wire_polys[:, 1], wire_polys[:, 2],
+                wire_polys[:, 3]]
+    aw_chis = [pow(aw_i, k, M) for k in range(len(aw_polys))]
+    aw_q = _open(torch.stack(aw_polys, dim=1), FR.tensor(aw_chis, dev),
+                 scal(z_ch_i))
+
+    saw_i = t.challenge_scalar(b"aggregate_witness")
+    saw_polys = [z_poly, wire_polys[:, 0], wire_polys[:, 1],
+                 wire_polys[:, 3], h_1_poly, z_2_poly, table_poly]
+    saw_chis = [pow(saw_i, k, M) for k in range(len(saw_polys))]
+    saw_q = _open(torch.stack(saw_polys, dim=1), FR.tensor(saw_chis, dev),
+                  scal(shifted_i))
+
+    mark("openings (2 divisions)", saw_q)
+    aw_opening, saw_opening = commit_batch(
+        dev_srs, torch.stack([aw_q, saw_q], dim=1), cfg)
+    mark("openings (2 commits)", saw_q)
+
+    return Proof(
+        a_comm=w_comms[0], b_comm=w_comms[1], c_comm=w_comms[2],
+        d_comm=w_comms[3], z_comm=z_comm, f_comm=None, h_1_comm=None,
+        h_2_comm=None, z_2_comm=z_2_comm, t_comms=t_comms,
+        aw_opening=aw_opening, saw_opening=saw_opening,
+        evaluations=evaluations)
+
