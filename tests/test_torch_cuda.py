@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from zprize_tpu_torch.curve import g1
-from zprize_tpu_torch.fields import kernels
+from zprize_tpu_torch.fields import kernels, mont
 from zprize_tpu_torch.fields.mont import FR, FQ
 from zprize_tpu_torch.ops import ntt
 from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
@@ -50,6 +50,10 @@ def test_field_kernels_match_plain(card, field):
         s = b[:, :1].contiguous()       # broadcast operand, period 1
         assert torch.equal(fn(C.P, a, s), plain(fn, C.P, a, s)), name
     assert torch.equal(kernels.neg(C.P, a), plain(kernels.neg, C.P, a))
+    c = _field(C, N, 5, card)
+    for x in (c, c[:, :1].contiguous()):
+        assert torch.equal(kernels.mul3(C.P, a, b, x),
+                           plain(kernels.mul3, C.P, a, b, x)), "mul3"
 
 
 @pytest.mark.cuda
@@ -82,3 +86,25 @@ def test_point_kernels_match_plain(card):
     q[:, 2] = g1.xyzz_neg(got[:, 2:3].contiguous())[:, 0]
     assert torch.equal(g1.xyzz_add(got, q), plain(g1.xyzz_add, got, q))
     assert torch.equal(g1.xyzz_add(got, got), plain(g1.xyzz_add, got, got))
+    # K8: got (ZZ != 1) + affine b, with P = O, Q = O, P == lift(Q) and
+    # P == -lift(Q) in the first columns
+    qx, qy = bx.clone(), by.clone()
+    p = got.clone()
+    p[:, 0] = 0
+    qx[:, 1] = qy[:, 1] = 0
+    x, y = plain(g1.xyzz_to_affine_device, got[:, 2:4].contiguous())
+    qx[:, 2:4] = x
+    qy[:, 2] = y[:, 0]
+    qy[:, 3] = plain(mont.neg, FQ, y[:, 1:2].contiguous())[:, 0]
+    assert torch.equal(g1.xyzz_add_mixed(p, qx, qy),
+                       plain(g1.xyzz_add_mixed, p, qx, qy))
+
+
+@pytest.mark.cuda
+def test_ntt_tables_are_cached_once_per_card(card):
+    """A bare "cuda" and "cuda:<current>" share one plan and one set of
+    sub-coset tables (prove_many places proofs on indexed devices)."""
+    idx = torch.device("cuda", torch.cuda.current_device())
+    assert ntt.get_plan(4, "cuda") is ntt.get_plan(4, idx)
+    assert ntt.get_subcoset_tables(4, "cuda") is \
+        ntt.get_subcoset_tables(4, idx)

@@ -1,7 +1,7 @@
 """The port's curve and MSM layer (`zprize_tpu_torch.curve.g1`,
 `ops.msm`) against the JAX package: the plain versions of the point
 kernels K7/K9 vs `zprize_tpu.curve.g1` (XLA path) coordinate for
-coordinate, the MSM vs the oracle `zprize_tpu.ref.curve.g1_msm` that
+coordinate and K8 vs `zprize_tpu.fields.pkern` in interpret mode, the MSM vs the oracle `zprize_tpu.ref.curve.g1_msm` that
 `zprize_tpu.ops.msm` is pinned to (its full window grid takes minutes to
 compile on a CPU) and its digit/capacity helpers vs `zprize_tpu.ops.msm`
 directly, and the multi-pass overflow drain. Exact comparisons."""
@@ -19,6 +19,7 @@ from zprize_tpu.params import R_MOD, Q_MOD
 from zprize_tpu.ref.curve import G1_GEN, g1_add, g1_mul, g1_msm, g1_neg
 from zprize_tpu_torch.curve import g1
 from zprize_tpu_torch.fields.limb import ints_to_limbs
+from zprize_tpu_torch.fields.mont import FQ
 from zprize_tpu_torch.ops import msm
 
 COORDS = ("X", "Y", "ZZ", "ZZZ")
@@ -77,6 +78,39 @@ def test_xyzz_add_and_double_match_jax():
     want = [g1_add(s, s) for s in sums]
     want[2] = None                                    # (P - P) = O
     assert g1.xyzz_to_affine_host(got) == want
+
+
+def test_xyzz_add_mixed_matches_pallas_interpret():
+    """K8's plain version against pkern.xyzz_add_mixed (interpret mode).
+    Columns: P == lift(Q) with P's ZZ != 1; P == -lift(Q), ZZ != 1; P = O
+    (ZZ = 0, X and Y not 0); Q = O; P == lift(Q) with ZZ = 1; both O;
+    random pairs."""
+    from zprize_tpu.fields import pkern
+    from zprize_tpu.fields.mont import FQ as JFQ
+    pairs = _pairs()
+    ax, ay, _ = g1.affine_points_to_device([a for a, _ in pairs], "cpu")
+    bx, by, _ = g1.affine_points_to_device([b for _, b in pairs], "cpu")
+    p = g1.xyzz_add_affine2(ax, ay, bx, by)
+    sums = [g1_add(a, b) for a, b in pairs]
+    rng = random.Random(5)
+    qs = [sums[0], g1_neg(sums[1]), g1_mul(G1_GEN, 77), None, sums[4],
+          None] + [g1_mul(G1_GEN, rng.randrange(1, 1 << 20))
+                   for _ in pairs[6:]]
+    one = torch.tensor(FQ.one_mont, dtype=torch.int32)
+    assert not torch.equal(p[48:72, 0], one)
+    assert not torch.equal(p[48:72, 1], one)
+    assert torch.equal(p[48:72, 4], one)
+    assert not p[48:72, 2].any() and p[:48, 2].any()
+    assert sums[5] is None and not p[:, 5].any()
+    qx, qy, _ = g1.affine_points_to_device(qs, "cpu")
+    got = g1.xyzz_add_mixed(p, qx, qy)
+    want = pkern.xyzz_add_mixed(
+        JFQ.K, jnp.asarray(p.numpy().astype(np.uint32)),
+        jnp.asarray(qx.numpy().astype(np.uint32)),
+        jnp.asarray(qy.numpy().astype(np.uint32)), interpret=True)
+    assert _eq(got, want)
+    assert g1.xyzz_to_affine_host(got) == [g1_add(a, q)
+                                           for a, q in zip(sums, qs)]
 
 
 def test_tree_sum_and_device_affine():

@@ -79,6 +79,26 @@ def test_plain_ops_match_pallas_interpret(field):
     assert _eq(kernels.neg(C.P, a), pkern.neg(JC.K, ja, interpret=True))
 
 
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_mul3_matches_pallas_interpret(field):
+    """K6's plain version against pkern.mul3 (both Montgomery reductions
+    fused), with the edge values 0, 1, p - 1, R mod p in every operand."""
+    C, JC = FIELDS[field]
+    xs, ys, a_np, b_np, a, b = _pair(C, JC, 70)
+    zs = _ints(C, N, 72)[::-1]
+    c_np = JC.to_mont_host(zs)
+    c = torch.from_numpy(c_np.astype(np.int32))
+    got = kernels.mul3(C.P, a, b, c)
+    assert _eq(got, pkern.mul3(JC.K, jnp.asarray(a_np), jnp.asarray(b_np),
+                               jnp.asarray(c_np), interpret=True))
+    assert C.from_mont_host(got) == [x * y * z % C.mod
+                                     for x, y, z in zip(xs, ys, zs)]
+    s = c[:, 5:6].contiguous()          # broadcast operand, period 1
+    assert torch.equal(kernels.mul3(C.P, a, b, s),
+                       kernels.mul(C.P, kernels.mul(C.P, a, b),
+                                   s.expand_as(a).contiguous()))
+
+
 def test_butterfly_stage_matches_pallas_mul_add_sub():
     """K5's plain version on one block (half = n: u = first half, v =
     second, w at step 1) equals pkern.mul_add_sub(u, v, w)."""

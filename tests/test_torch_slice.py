@@ -1,6 +1,6 @@
 """The port's first slice end to end on the CPU: Merkle layout and witness
-against `zprize_tpu.merkle.layout`, a height-3 proof from a JAX-made key
-(carried over by `zprize_tpu_torch.interop`) byte-identical to the
+against `zprize_tpu.merkle.layout`, a height-3 proof from the spec's key
+(`DevProverKey.from_ref`) and the JAX layout's witness byte-identical to the
 executable spec's `zprize_tpu.ref.prover.prove`, the copied spec modules
 against their originals, and the port's import and device rules."""
 
@@ -26,7 +26,6 @@ from zprize_tpu.protocol.serde import serialize_proof as jax_serialize
 from zprize_tpu.protocol.transcript_protocol import TranscriptProtocol
 from zprize_tpu.ref import prover as rp
 
-from zprize_tpu_torch import interop
 from zprize_tpu_torch.fields.mont import FR
 from zprize_tpu_torch.merkle.layout import MerkleLayout
 from zprize_tpu_torch.protocol import prover_torch as pt
@@ -93,15 +92,13 @@ def test_sigma_evals_match_spec_key(ref_h3):
 
 
 def _port_inputs(ref):
-    """JAX-made key, SRS points and witness, carried over by interop."""
-    jpk = tp.DevProverKey.from_ref(ref["pk"])
-    pk = interop.prover_key_from_jax(jpk, device="cpu")
-    jsrs = tp.DevSRS(ref["srs"], device=True)
-    dev_srs = pt.DevSRS(interop.srs_points(*jsrs.points, device="cpu"),
-                        ref["srs"])
+    """The spec's key and SRS through the port's `from_ref`, and the JAX
+    layout's witness (numpy arrays of the same limb bits)."""
+    pk = pt.DevProverKey.from_ref(ref["pk"], "cpu")
+    dev_srs = pt.DevSRS.from_ref(ref["srs"], "cpu")
     jw, root, _ = JaxLayout(H).witness(
         jnp.asarray(JFR.to_mont_host(ref["leaves"])))
-    wires = interop.witness_wires([np.asarray(w) for w in jw], device="cpu")
+    wires = [torch.from_numpy(np.asarray(w).astype(np.int32)) for w in jw]
     assert {k: (-root) % R_MOD for k in ref["pi"]} == ref["pi"]
     return pk, dev_srs, wires, ref["pi"]
 
@@ -144,6 +141,14 @@ def test_copied_spec_modules_match_originals():
     assert port_rp.SELECTOR_ORDER == orig_rp.SELECTOR_ORDER
     assert port_rp.SIGMA_NAMES == orig_rp.SIGMA_NAMES
     assert port_rp.SEED_ORDER == orig_rp.SEED_ORDER
+    # verbatim copies: the spec prover, the gate library, JubJub, the
+    # native combine_split
+    for rel in ("ref/prover.py", "circuit/gates_ext.py", "curve/jubjub.py",
+                "circuit/__init__.py", "native/hostops.c"):
+        with open(os.path.join(ROOT, "zprize_tpu", rel), "rb") as f:
+            orig = f.read()
+        with open(os.path.join(ROOT, "zprize_tpu_torch", rel), "rb") as f:
+            assert f.read() == orig, rel
     # upstream merlin test vector (merlin/src/transcript.rs tests)
     for T in (Transcript, JaxMerlin):
         t = T(b"test protocol")
@@ -190,7 +195,11 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.prove_torch(None, None, None, None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        interop.witness_wires([])
+        pt.DevSRS.from_ref(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.DevProverKey.from_ref(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.ProverWitness.from_composer(None, 16)
 
 
 @pytest.mark.slow

@@ -12,9 +12,12 @@ Layout mirrors `zprize_tpu` so each module's counterpart is easy to find:
   poseidon/, merkle/ — batched Poseidon witness, tiled Merkle layout.
   ref/, transcript/, circuit/ — host-side executable spec, copied from
                `zprize_tpu` so this package imports neither JAX nor it.
+  native/    — the plookup `combine_split` in C (built with gcc).
 
 Entry points (`device_srs`, `MerkleLayout`, `preprocess_layout`,
-`prove_torch`) run on CUDA unless the caller passes device="cpu".
+`DevProverKey.from_ref`, `DevSRS.from_ref`, `ProverWitness.from_composer`,
+`prove_torch`, `keys_io.load_prover_key`, `prove_many`) run on CUDA unless
+the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-// The seven field/curve kernels of the prover's main path, one thread per
-// element, with a plain C interface (bound from Python through ctypes by
+// The nine field/curve kernels of the port, one thread per element, with a
+// plain C interface (bound from Python through ctypes by
 // `zprize_tpu_torch/fields/kernels.py`).
 //
 // Each replaces one Pallas entry point of `zprize_tpu/fields/pkern.py`:
@@ -8,14 +8,18 @@
 //   zk_sub             K3 pkern.sub            a-b             Fr, Fq
 //   zk_neg             K4 pkern.neg            -a              Fr, Fq
 //   zk_butterfly_stage K5 pkern.mul_add_sub    (u+vw, u-vw)    Fr
+//   zk_mul3            K6 pkern.mul3           a*b*c*R^-2      Fr, Fq
 //   zk_xyzz_add        K7 pkern.xyzz_add       xyzz + xyzz     Fq
+//   zk_xyzz_add_mixed  K8 pkern.xyzz_add_mixed xyzz + affine   Fq
 //   zk_xyzz_add_affine2 K9 pkern.xyzz_add_affine2 affine+affine Fq
 //
 // Bound: the (L, n) layout stores 16 bits in every 32-bit word, so the field
 // ops move 2x the bytes of a packed layout and are memory-bound on an H100
 // (Fr add: 192 B per element for ~30 integer ops). The curve kernels do
 // ~14-22 Fq products (~300 multiply-adds each) per ~1.2 KB and are bound by
-// integer multiply throughput. Design: the batch axis is the fastest-moving
+// integer multiply throughput. K6 keeps a*b in registers, so it moves 4 (not
+// 6) field elements per column; K8 reads an affine operand (48 words) where
+// K7 reads a second xyzz one (96). Design: the batch axis is the fastest-moving
 // one, so the 32 threads of a warp read 32 consecutive words of each limb
 // row (coalesced); limbs live in registers; the tail is masked so any n
 // works. Every launcher returns cudaGetLastError().
@@ -53,6 +57,24 @@ binary_kernel(const uint32_t* __restrict__ a, long long pa,
   if (OPK == OP_ADD) add_mod<F>(r, x, y);
   if (OPK == OP_SUB) sub_mod<F>(r, x, y);
   store_fe<F::N>(out, n, col, r);
+}
+
+// K6: both Montgomery products in registers, no round trip of a*b
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+mul3_kernel(const uint32_t* __restrict__ a, long long pa,
+            const uint32_t* __restrict__ b, long long pb,
+            const uint32_t* __restrict__ c, long long pc,
+            uint32_t* __restrict__ out, long long n) {
+  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  uint32_t x[F::N], y[F::N], r[F::N];
+  load_fe<F::N>(x, a, pa, col_of(col, pa, n));
+  load_fe<F::N>(y, b, pb, col_of(col, pb, n));
+  mont_mul<F>(r, x, y);
+  load_fe<F::N>(y, c, pc, col_of(col, pc, n));
+  mont_mul<F>(x, r, y);
+  store_fe<F::N>(out, n, col, x);
 }
 
 template <class F>
@@ -121,6 +143,24 @@ xyzz_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   store_xyzz(out, n, col, r);
 }
 
+// xyzz p (96, n) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity.
+// The identity test reads (qx, qy) before the lift (ZZ = ZZZ = 1).
+__global__ void __launch_bounds__(kPointThreads)
+xyzz_add_mixed_kernel(const uint32_t* __restrict__ p,
+                      const uint32_t* __restrict__ qx,
+                      const uint32_t* __restrict__ qy,
+                      uint32_t* __restrict__ out, long long n) {
+  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  Xyzz a, b, r;
+  load_xyzz(a, p, n, col);
+  load_fe<12>(b.X, qx, n, col);
+  load_fe<12>(b.Y, qy, n, col);
+  affine_lift(b);
+  xyzz_add(r, a, b);
+  store_xyzz(out, n, col, r);
+}
+
 // affine (px, py) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity
 __global__ void __launch_bounds__(kPointThreads)
 xyzz_add_affine2_kernel(const uint32_t* __restrict__ px,
@@ -181,6 +221,24 @@ int zk_sub(int field, const void* a, long long pa, const void* b,
                                static_cast<cudaStream_t>(stream));
 }
 
+int zk_mul3(int field, const void* a, long long pa, const void* b,
+            long long pb, const void* c, long long pc, void* out,
+            long long n, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* A = static_cast<const uint32_t*>(a);
+  const auto* B = static_cast<const uint32_t*>(b);
+  const auto* C = static_cast<const uint32_t*>(c);
+  auto* O = static_cast<uint32_t*>(out);
+  if (field == 0)
+    mul3_kernel<Fr><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
+        A, pa, B, pb, C, pc, O, n);
+  else
+    mul3_kernel<Fq><<<blocks_for(n, kThreads), kThreads, 0, s>>>(
+        A, pa, B, pb, C, pc, O, n);
+  return (int)cudaGetLastError();
+}
+
 int zk_neg(int field, const void* a, long long pa, void* out, long long n,
            void* stream) {
   if (n <= 0) return 0;
@@ -212,6 +270,17 @@ int zk_xyzz_add(const void* p, const void* q, void* out, long long n,
   xyzz_add_kernel<<<blocks_for(n, kPointThreads), kPointThreads, 0, s>>>(
       static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(q),
       static_cast<uint32_t*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+int zk_xyzz_add_mixed(const void* p, const void* qx, const void* qy,
+                      void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  xyzz_add_mixed_kernel<<<blocks_for(n, kPointThreads), kPointThreads, 0,
+                          s>>>(
+      static_cast<const uint32_t*>(p), static_cast<const uint32_t*>(qx),
+      static_cast<const uint32_t*>(qy), static_cast<uint32_t*>(out), n);
   return (int)cudaGetLastError();
 }
 

@@ -2,6 +2,7 @@
 `zprize_tpu/curve/g1.py`, and the wrappers of the two curve kernels:
 
   K7 `xyzz_add`          (pkern.xyzz_add,          csrc/kernels.cu)
+  K8 `xyzz_add_mixed`    (pkern.xyzz_add_mixed,    csrc/kernels.cu)
   K9 `xyzz_add_affine2`  (pkern.xyzz_add_affine2,  csrc/kernels.cu)
 
 A point batch is ONE stacked int32 tensor (4L, *batch) = X, Y, ZZ, ZZZ
@@ -41,13 +42,20 @@ def is_identity(p):
 
 
 # ---------------------------------------------------------------------------
-# K7 / K9 and their plain versions
+# K7 / K8 / K9 and their plain versions
 # ---------------------------------------------------------------------------
 
 def xyzz_add_plain(p, q):
     """Plain version of K7 on stacked (4L, N) tensors."""
     r = limbmath.xyzz_add(FQ.P, _split(p.to(torch.int64)),
                           _split(q.to(torch.int64)))
+    return _stack(r).to(torch.int32)
+
+
+def xyzz_add_mixed_plain(p, qx, qy):
+    """Plain version of K8: p (4L, N) xyzz + affine (L, N) (qx, qy)."""
+    q = limbmath.affine_lift(FQ.P, qx.to(torch.int64), qy.to(torch.int64))
+    r = limbmath.xyzz_add(FQ.P, _split(p.to(torch.int64)), q)
     return _stack(r).to(torch.int32)
 
 
@@ -76,7 +84,31 @@ def xyzz_add(p, q):
     rc = kernels.load_library().zk_xyzz_add(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), n, kernels.stream())
     kernels.check(rc, "xyzz_add")
-    kernels.COUNTS["xyzz_add"] += 1
+    kernels.count("xyzz_add")
+    return out.reshape((4 * L,) + tuple(batch))
+
+
+def xyzz_add_mixed(p, qx, qy):
+    """K8: stacked xyzz (4L, *batch) + affine (qx, qy) of (L, *batch), with
+    (0, 0) the identity; the special cases of K7."""
+    batch = p.shape[1:]
+    a = p.reshape(4 * L, -1).contiguous()
+    x = qx.reshape(L, -1).contiguous()
+    y = qy.reshape(L, -1).contiguous()
+    if not kernels.use_kernel(a):
+        return xyzz_add_mixed_plain(a, x, y).reshape(p.shape)
+    kernels.check_operand(a, 4 * L, a.device)
+    for t in (x, y):
+        kernels.check_operand(t, L, a.device)
+        if t.shape[1] != a.shape[1]:
+            raise ValueError("affine operand must match the xyzz batch")
+    n = a.shape[1]
+    out = torch.empty_like(a)
+    rc = kernels.load_library().zk_xyzz_add_mixed(
+        a.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+        kernels.stream())
+    kernels.check(rc, "xyzz_add_mixed")
+    kernels.count("xyzz_add_mixed")
     return out.reshape((4 * L,) + tuple(batch))
 
 
@@ -96,7 +128,7 @@ def xyzz_add_affine2(px, py, qx, qy):
     rc = kernels.load_library().zk_xyzz_add_affine2(
         *[x.data_ptr() for x in ops], out.data_ptr(), n, kernels.stream())
     kernels.check(rc, "xyzz_add_affine2")
-    kernels.COUNTS["xyzz_add_affine2"] += 1
+    kernels.count("xyzz_add_affine2")
     return out.reshape((4 * L,) + tuple(batch))
 
 

@@ -14,3 +14,12 @@ def resolve(device=None) -> torch.device:
     if d.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {d}")
     return d
+
+
+def canonical(device) -> torch.device:
+    """`device` with its CUDA index filled in (a bare "cuda" is the
+    current card), so a cache keyed by it holds one entry per card."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d

@@ -12,12 +12,12 @@ most `LOCK_TIMEOUT_S` seconds and then raises with the lock's path.
 Every wrapper takes limbs-leading int32 tensors of 16-bit limbs:
   * on a CUDA tensor it launches its kernel and adds one to
     `COUNTS[name]` (inside `with impl("plain"):`, which the comparisons on
-    the card use, it runs the plain version); a build or launch error
-    raises — there is no fallback;
+    the card use and which holds for the calling thread, it runs the plain
+    version); a build or launch error raises — there is no fallback;
   * on a CPU tensor it runs the plain version (`limbmath.py`).
 
-The wrappers here are K1-K5 of `zprize_tpu/fields/pkern.py`; the curve
-kernels K7 and K9 are wrapped in `curve/g1.py`.
+The wrappers here are K1-K6 of `zprize_tpu/fields/pkern.py`; the curve
+kernels K7-K9 are wrapped in `curve/g1.py`.
 """
 
 import contextlib
@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -40,31 +41,48 @@ ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 LOCK_TIMEOUT_S = 600
 BUILD_TIMEOUT_S = 600
 
-KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub", "xyzz_add",
-                "xyzz_add_affine2")
+KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub", "mul3",
+                "xyzz_add", "xyzz_add_mixed", "xyzz_add_affine2")
 # launches of each CUDA kernel since the last reset_counts()
 COUNTS = {k: 0 for k in KERNEL_NAMES}
 
 _LIB = None
 BUILD_INFO = {}
-_IMPL = ["kernel"]
+# the impl() stack of each thread (prove_many proves in several threads)
+_LOCAL = threading.local()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_counts():
-    for k in COUNTS:
-        COUNTS[k] = 0
+    with _COUNT_LOCK:
+        for k in COUNTS:
+            COUNTS[k] = 0
+
+
+def count(name):
+    """One launch of kernel `name` (called by its wrapper only)."""
+    with _COUNT_LOCK:
+        COUNTS[name] += 1
+
+
+def _impl_stack():
+    if not hasattr(_LOCAL, "stack"):
+        _LOCAL.stack = ["kernel"]
+    return _LOCAL.stack
 
 
 @contextlib.contextmanager
 def impl(name):
     """Run CUDA tensors through the kernels ("kernel", the default) or
-    through the plain versions ("plain") inside the block."""
+    through the plain versions ("plain") inside the block, in this
+    thread."""
     assert name in ("kernel", "plain"), name
-    _IMPL.append(name)
+    stack = _impl_stack()
+    stack.append(name)
     try:
         yield
     finally:
-        _IMPL.pop()
+        stack.pop()
 
 
 def use_kernel(t):
@@ -74,7 +92,7 @@ def use_kernel(t):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
-    return _IMPL[-1] == "kernel"
+    return _impl_stack()[-1] == "kernel"
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +179,15 @@ def load_library():
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("zk_mul", "zk_add", "zk_sub"):
         getattr(h, name).argtypes = [I, P, LL, P, LL, P, LL, P]
+    h.zk_mul3.argtypes = [I, P, LL, P, LL, P, LL, P, LL, P]
     h.zk_neg.argtypes = [I, P, LL, P, LL, P]
     h.zk_butterfly_stage.argtypes = [P, P, LL, I, P, LL, LL, P]
     h.zk_xyzz_add.argtypes = [P, P, P, LL, P]
+    h.zk_xyzz_add_mixed.argtypes = [P, P, P, P, LL, P]
     h.zk_xyzz_add_affine2.argtypes = [P, P, P, P, P, LL, P]
-    for name in ("zk_mul", "zk_add", "zk_sub", "zk_neg",
-                 "zk_butterfly_stage", "zk_xyzz_add", "zk_xyzz_add_affine2"):
+    for name in ("zk_mul", "zk_add", "zk_sub", "zk_mul3", "zk_neg",
+                 "zk_butterfly_stage", "zk_xyzz_add", "zk_xyzz_add_mixed",
+                 "zk_xyzz_add_affine2"):
         getattr(h, name).restype = I
     _LIB = h
     return h
@@ -190,48 +211,52 @@ def check_operand(x, L, device):
 
 
 # ---------------------------------------------------------------------------
-# K1-K4: elementwise field ops over (L, n); an operand may be (L, per) with
-# per dividing n (a broadcast scalar or a tile along the flattened batch)
+# K1-K4, K6: elementwise field ops over (L, n); an operand may be (L, per)
+# with per dividing n (a broadcast scalar or a tile along the flattened
+# batch)
 # ---------------------------------------------------------------------------
 
-def _binary(name, plain_fn, P, a, b):
-    n = max(a.shape[1], b.shape[1])
-    if not use_kernel(a):
-        a64 = a.to(torch.int64)
-        b64 = b.to(torch.int64)
-        if a.shape[1] != n:
-            a64 = a64.repeat(1, n // a.shape[1])
-        if b.shape[1] != n:
-            b64 = b64.repeat(1, n // b.shape[1])
-        return plain_fn(P, a64, b64).to(torch.int32)
-    for x in (a, b):
-        check_operand(x, P.L, a.device)
+def _elementwise(name, plain_fn, P, *ops):
+    """K1-K3 and K6 over (L, n) operands, each (L, per) with per | n."""
+    n = max(x.shape[1] for x in ops)
+    if not use_kernel(ops[0]):
+        wide = [x.to(torch.int64) for x in ops]
+        wide = [x if x.shape[1] == n else x.repeat(1, n // x.shape[1])
+                for x in wide]
+        return plain_fn(P, *wide).to(torch.int32)
+    args = []
+    for x in ops:
+        check_operand(x, P.L, ops[0].device)
         if n % x.shape[1]:
             raise ValueError("operand period must divide n")
-    out = torch.empty((P.L, n), dtype=torch.int32, device=a.device)
-    lib = load_library()
-    field = 0 if P.L == 16 else 1
-    rc = getattr(lib, "zk_" + name)(field, a.data_ptr(), a.shape[1],
-                                    b.data_ptr(), b.shape[1],
-                                    out.data_ptr(), n, stream())
+        args += [x.data_ptr(), x.shape[1]]
+    out = torch.empty((P.L, n), dtype=torch.int32, device=ops[0].device)
+    rc = getattr(load_library(), "zk_" + name)(
+        0 if P.L == 16 else 1, *args, out.data_ptr(), n, stream())
     check(rc, name)
-    COUNTS[name] += 1
+    count(name)
     return out
 
 
 def mul(P, a, b):
     """K1 (pkern.mul): a*b*R^-1 mod p."""
-    return _binary("mul", limbmath.mul, P, a, b)
+    return _elementwise("mul", limbmath.mul, P, a, b)
 
 
 def add(P, a, b):
     """K2 (pkern.add): a + b mod p."""
-    return _binary("add", limbmath.add, P, a, b)
+    return _elementwise("add", limbmath.add, P, a, b)
 
 
 def sub(P, a, b):
     """K3 (pkern.sub): a - b mod p."""
-    return _binary("sub", limbmath.sub, P, a, b)
+    return _elementwise("sub", limbmath.sub, P, a, b)
+
+
+def mul3(P, a, b, c):
+    """K6 (pkern.mul3): a*b*c with both Montgomery reductions in one
+    launch."""
+    return _elementwise("mul3", limbmath.mul3, P, a, b, c)
 
 
 def neg(P, a):
@@ -244,7 +269,7 @@ def neg(P, a):
     rc = load_library().zk_neg(0 if P.L == 16 else 1, a.data_ptr(), n,
                                out.data_ptr(), n, stream())
     check(rc, "neg")
-    COUNTS["neg"] += 1
+    count("neg")
     return out
 
 
@@ -286,5 +311,5 @@ def butterfly_stage(P, a, tw, half, tw_step):
         a.data_ptr(), out.data_ptr(), N, half.bit_length() - 1,
         tw.data_ptr(), tw.shape[1], tw_step, stream())
     check(rc, "mul_add_sub")
-    COUNTS["mul_add_sub"] += 1
+    count("mul_add_sub")
     return out

@@ -154,6 +154,11 @@ def _mul(P, a, b):
     return cond_sub_mod(P, Xn[L:2 * L], extra=Xn[2 * L])
 
 
+def mul3(P, a, b, c):
+    """Plain version of K6: (a*b*R^-1) * c * R^-1."""
+    return mul(P, mul(P, a, b), c)
+
+
 def is_zero(a):
     return (a == 0).all(dim=0)
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..params import R_MOD, FR_GENERATOR
+from ..device import canonical
 from ..ref.field import root_of_unity
 from ..fields import mont, kernels
 from ..fields.mont import FR
@@ -65,7 +66,7 @@ def _plan(log_n, device_str):
 
 
 def get_plan(log_n: int, device) -> NttPlan:
-    return _plan(log_n, str(torch.device(device)))
+    return _plan(log_n, str(canonical(device)))
 
 
 def transform_last(plan: NttPlan, a, invert: bool):
@@ -149,7 +150,7 @@ def _sct(log_n, device_str):
 
 
 def get_subcoset_tables(log_n: int, device) -> SubcosetTables:
-    return _sct(log_n, str(torch.device(device)))
+    return _sct(log_n, str(canonical(device)))
 
 
 def coset_ntt_shifted(plan: NttPlan, a, shift_pows):

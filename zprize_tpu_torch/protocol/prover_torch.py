@@ -6,21 +6,25 @@ transcript byte for byte, so its proofs equal the executable spec's
 The quotient round processes the 8n coset domain as 8 sub-cosets of size n
 (`ops/ntt.SubcosetTables`): every selector's evaluations are recomputed per
 sub-coset from coefficient form, so no (L, 8, n) table is kept. The host
-keeps Fiat-Shamir, two 64-byte inversions, the linearisation scalars and
-the MSM window folds.
+keeps Fiat-Shamir, two 64-byte inversions, the linearisation scalars, the
+MSM window folds and the plookup `combine_split` (native C, `native/`).
 
-This slice covers the degenerate-lookup circuits (q_lookup == 0 and an
-empty table, as in the Merkle circuit); a key with a real lookup table is
-refused. The `msm_backend="host"` branch of the JAX prover is not ported.
+Both lookup branches are here: a key whose q_lookup and table are all zero
+(the Merkle circuit) takes the degenerate shortcut (f = t = h1 = h2 = 0,
+identity commitments); any other key runs the real plookup rounds.
+General circuits enter through `DevProverKey.from_ref` (a spec
+`ref/prover.preprocess` key) and `ProverWitness.from_composer`.
 """
 
 import time
 
+import numpy as np
 import torch
 
 from ..params import R_MOD, K1, K2, K3, JUBJUB_A, JUBJUB_D
 from ..device import resolve
 from ..fields import mont, kernels
+from .. import native
 from ..fields.mont import FR
 from ..fields.frvec import FV
 from ..ops import ntt as tntt
@@ -31,6 +35,7 @@ from .proof import Proof, Evaluations
 from . import widgets_torch as W
 from .widgets import (range_constraint, logic_constraint, fbsm_constraint,
                       ca_constraint, lc)
+from ..ref import kzg as ref_kzg
 
 M = R_MOD
 
@@ -45,43 +50,106 @@ class ProverConfig:
     """device: where the prover runs (CUDA unless "cpu" is given).
     impl: "kernel" (default) or "plain" — run the CUDA tensors through the
     plain PyTorch versions instead of the kernels (comparison runs only).
-    commit_passes: every commit appends its MSM drain pass count here.
+    msm_backend: "device" (the Pippenger MSM of `ops/msm.py`) or "host"
+    (the spec's Python MSM over `DevSRS.ref.powers_of_g`; for differential
+    checks of everything but the MSM).
+    msm_window_bits: window of the device MSM (a divisor of 16); None picks
+    `msm.auto_window_bits(n)`.
+    commit_passes: every device commit appends its MSM drain pass count.
     log: optional callable; when set, every round ends by pulling one
     element to the host and logs its seconds (an attributable breakdown,
     at the cost of one sync per round)."""
 
-    def __init__(self, device=None, impl="kernel", log=None):
+    def __init__(self, device=None, impl="kernel", log=None,
+                 msm_backend="device", msm_window_bits=None):
+        if msm_backend not in ("device", "host"):
+            raise ValueError(f"msm_backend must be 'device' or 'host', "
+                             f"not {msm_backend!r}")
+        if msm_window_bits is not None and msm_window_bits not in \
+                (1, 2, 4, 8, 16):
+            raise ValueError("msm_window_bits must divide 16")
         self.device = resolve(device)
         self.impl = impl
         self.log = log
+        self.msm_backend = msm_backend
+        self.msm_window_bits = msm_window_bits
         self.commit_passes = []
 
 
 class DevSRS:
     """SRS points on the device: (x (L, N), y (L, N), inf (N,)), identity
-    (0, 0); `ref` carries h / beta_h for the verifier."""
+    (0, 0); `ref` carries h / beta_h for the verifier (and powers_of_g
+    when built by `from_ref`, which the host MSM backend reads)."""
 
     def __init__(self, points, ref):
         self.points = points
         self.ref = ref
         self.size = points[0].shape[1]
 
+    @classmethod
+    def from_ref(cls, srs, device=None):
+        """From a spec `ref.kzg.SRS` (Python-int points)."""
+        dev = resolve(device)
+        return cls(g1.affine_points_to_device(srs.powers_of_g, dev), srs)
+
+
+def _is_zero_col(values, n, device):
+    """(n,) bool: which of `values`, padded with zeros to n, are 0 mod r."""
+    col = torch.zeros(n, dtype=torch.bool)
+    col[:len(values)] = torch.tensor([x % M != 0 for x in values],
+                                     dtype=torch.bool)
+    return (~col).to(device)
+
 
 class DevProverKey:
-    """Selector/sigma COEFFICIENT polys plus the sigma n-domain evals, all
-    (L, n) int32 on the device."""
+    """Selector/sigma COEFFICIENT polys plus the sigma n-domain evals and
+    the four padded lookup table columns (evaluation form), all (L, n)
+    int32 on the device."""
 
     lookup_degenerate = False
+
+    @classmethod
+    def from_ref(cls, pk, device=None):
+        """From the spec's `ref.prover.ProverKey` (int lists)."""
+        dev = resolve(device)
+        self = cls()
+        self.n = pk.n
+        self.log_n = pk.n.bit_length() - 1
+        self.sel_poly = {k: FR.tensor(v, dev)
+                         for k, v in pk.selector_polys.items()}
+        self.sigma_poly = [FR.tensor(v, dev) for v in pk.sigma_polys]
+        self.sigma_evals_n = [FR.tensor(v, dev) for v in pk.sigma_evals_n]
+        self.table_cols = [FR.tensor(c, dev) for c in pk.table_columns]
+        self.lookup_degenerate = (
+            all(v == 0 for v in pk.selector_polys.get("q_lookup", []))
+            and all(all(x == 0 for x in c) for c in pk.table_columns))
+        return self
+
+    def q_lookup_zero_mask(self, cs, n):
+        return _is_zero_col(cs.q_lookup, n, self.sel_poly["q_m"].device)
 
 
 class ProverWitness:
     """Wire value columns in evaluation form ((L, n) Montgomery tensors),
-    sparse public inputs {gate: value}, and the q_lookup == 0 mask."""
+    sparse public inputs {gate: value}, and the (n,) q_lookup == 0 mask
+    (needed by keys with a real lookup table)."""
 
     def __init__(self, wires_dev, public_inputs, q_lookup_zero_mask=None):
         self.wires_dev = wires_dev
         self.public_inputs = public_inputs
         self.q_lookup_zero_mask = q_lookup_zero_mask
+
+    @classmethod
+    def from_composer(cls, cs, n, device=None):
+        """From a `circuit.composer.StandardComposer`: its wires padded
+        with the value 0 to n gates."""
+        dev = resolve(device)
+        val = cs.variables
+        wires_dev = [FR.tensor([val[v] for v in wires]
+                             + [0] * (n - len(wires)), dev)
+                     for wires in (cs.w_l, cs.w_r, cs.w_o, cs.w_4)]
+        return cls(wires_dev, dict(cs.public_inputs),
+                   _is_zero_col(cs.q_lookup, n, dev))
 
 
 # ---------------------------------------------------------------------------
@@ -90,9 +158,13 @@ class ProverWitness:
 
 def commit_batch(dev_srs, polys, cfg):
     """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
-    points. Records each commit's MSM pass count in cfg.commit_passes."""
+    points. Records each device commit's MSM pass count in
+    cfg.commit_passes."""
     n = polys.shape[2]
-    wb = tmsm.auto_window_bits(n)
+    if cfg.msm_backend == "host":
+        return [ref_kzg.commit(dev_srs.ref, FR.from_mont_host(polys[:, b]))
+                for b in range(polys.shape[1])]
+    wb = cfg.msm_window_bits or tmsm.auto_window_bits(n)
     x = dev_srs.points[0][:, :n].contiguous()
     y = dev_srs.points[1][:, :n].contiguous()
     raw = mont.from_mont(FR, polys)
@@ -109,9 +181,11 @@ def commit_batch(dev_srs, polys, cfg):
 # round programs
 # ---------------------------------------------------------------------------
 
-def _z_parts(roots, wires, sigma_evals, beta, gamma, delta, eps):
+def _z_parts(roots, wires, sigma_evals, f, tcol, h1, h2, beta, gamma,
+             delta, eps):
     """Numerators/denominators + denominator totals of the two grand
-    products. Degenerate lookup: f = t = h1 = h2 = 0."""
+    products; f, tcol, h1, h2 are the lookup columns in evaluation form
+    (all zero for a degenerate lookup)."""
     betaF, gammaF = FV(beta[:, None]), FV(gamma[:, None])
     rootsF = FV(roots)
     ks = [FV.const(k) for k in (1, K1, K2, K3)]
@@ -128,14 +202,12 @@ def _z_parts(roots, wires, sigma_evals, beta, gamma, delta, eps):
     opd = FV(delta[:, None]) + one
     epsF = FV(eps[:, None])
     eps_opd = epsF * opd
-    n = roots.shape[-1]
-    zero = FV(torch.zeros_like(roots))
-    fv = tv = h1v = h2v = zero
+    fv, tv, h1v, h2v = FV(f), FV(tcol), FV(h1), FV(h2)
     deltaF = FV(delta[:, None])
+    # FV.roll(1) is the next gate: element i of t_next is t[i + 1]
     num2 = opd * (epsF + fv) * (eps_opd + tv + deltaF * tv.roll(1))
     den2 = (eps_opd + h1v + h2v * deltaF) * \
         (eps_opd + h2v + h1v.roll(1) * deltaF)
-    assert num2.v.shape[-1] == n
     tot_z = mont.prod_tree_total(FR, denv.v)
     tot_2 = mont.prod_tree_total(FR, den2.v)
     return numv.v, denv.v, tot_z, num2.v, den2.v, tot_2
@@ -149,15 +221,19 @@ def _z_finish(plan, num, den, inv_total):
     return tntt.intt(plan, evals)
 
 
-def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, ch):
+def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
     """quotient_poly.rs compute(), one sub-coset at a time. All inputs are
-    coefficient-form (L, n); ch maps names to (L,) challenges. Returns the
-    8 quotient chunk polys (L, 8, n)."""
+    coefficient-form (L, n); lookup is (f, t, h1, h2), None for a
+    degenerate lookup; ch maps names to (L,) challenges. Returns the 8
+    quotient chunk polys (L, 8, n)."""
     n = wl.shape[-1]
     L = FR.L
     dev = wl.device
     l1c = plan.n_inv[:, None].expand(L, n)
-    base_st = torch.stack([wl, wr, wo, w4, z, z2, pi, l1c], dim=1)
+    base = [wl, wr, wo, w4, z, z2, pi, l1c]
+    if lookup is not None:
+        base += list(lookup)
+    base_st = torch.stack(base, dim=1)
     arith_names = ["q_arith", "q_m", "q_l", "q_r", "q_o", "q_4", "q_c",
                    "q_hl", "q_hr", "q_h4"]
     other_names = ["q_range", "q_logic", "q_lookup", "q_fixed_group_add",
@@ -229,20 +305,26 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, ch):
             FV.const(K1), FV.const(K2), FV.const(K3))
         del Eg, sig
 
-        # degenerate lookup: f = t = h1 = h2 = 0 (widgets_jax algebra)
-        ls = c("lookup")
-        ls2 = ls.sqr()
-        ls3 = ls2 * ls
-        one = FV.one()
-        opd = c("delta") + one
-        epsF = c("epsilon")
-        eps_opd = epsF * opd
-        compressed = W.lc4(a, b, cw, d, c("zeta"))
-        term_a = q_lookup * compressed * ls
-        term_b = z2F * (opd * epsF * eps_opd) * ls2
-        term_c = -(z2_n * eps_opd * eps_opd * ls2)
-        term_d = (z2F - one) * l1F * ls3
-        lkp = term_a + term_b + term_c + term_d
+        if lookup is None:
+            # degenerate lookup: f = t = h1 = h2 = 0 (widgets_jax algebra)
+            ls = c("lookup")
+            ls2 = ls.sqr()
+            ls3 = ls2 * ls
+            one = FV.one()
+            opd = c("delta") + one
+            epsF = c("epsilon")
+            eps_opd = epsF * opd
+            compressed = W.lc4(a, b, cw, d, c("zeta"))
+            term_a = q_lookup * compressed * ls
+            term_b = z2F * (opd * epsF * eps_opd) * ls2
+            term_c = -(z2_n * eps_opd * eps_opd * ls2)
+            term_d = (z2F - one) * l1F * ls3
+            lkp = term_a + term_b + term_c + term_d
+        else:
+            lkp = W.lookup_quotient_term(
+                q_lookup, a, b, cw, d, ev(8), ev(9), nxt(9), ev(10),
+                nxt(10), ev(11), z2F, z2_n, l1F, c("delta"), c("epsilon"),
+                c("zeta"), c("lookup"))
 
         numer = gate + perm + lkp
         Q = mont.mont_mul(FR, numer.v, sct.vh_inv[:, j:j + 1])
@@ -300,11 +382,52 @@ def _round_marker(cfg):
     return mark
 
 
+def _combine_split(compressed_t, compressed_f):
+    """Spec `combine_split` (native C) of the compressed table and
+    witness columns, (L, n) Montgomery -> (h1, h2) (L, n) Montgomery. The C
+    code reads n rows of 32 little-endian bytes: the raw 16-bit limbs of
+    each value, low limb first."""
+    L, n = compressed_t.shape
+
+    def rows(x):
+        raw = mont.from_mont(FR, x).t().cpu().numpy()
+        return raw.astype("<u2").tobytes()
+
+    h1b, h2b = native.combine_split_bytes(rows(compressed_t),
+                                          rows(compressed_f), n)
+
+    def back(b):
+        raw = np.frombuffer(b, "<u2").reshape(n, L).T.astype(np.int32)
+        return mont.to_mont(FR, torch.from_numpy(raw).to(
+            compressed_t.device))
+
+    return back(h1b), back(h2b)
+
+
+def _lookup_round(plan, dev_pk, witness, zeta):
+    """Round 2 with a real table: compressed t and f (f takes t's first
+    row where q_lookup == 0), h1/h2 by combine_split. Returns evaluations
+    (f, t, h1, h2) and polynomials (f, t, h1, h2)."""
+    mask = witness.q_lookup_zero_mask
+    tc = [FV(c) for c in dev_pk.table_cols]
+    compressed_t = W.lc4(tc[0], tc[1], tc[2], tc[3], zeta).v
+    w = witness.wires_dev
+    m = mask[None]
+    zero = torch.zeros_like(compressed_t)
+    f_cols = [torch.where(m, compressed_t[:, :1].expand_as(compressed_t),
+                          w[0])] + [torch.where(m, zero, x) for x in w[1:]]
+    compressed_f = W.lc4(*[FV(c) for c in f_cols], zeta).v
+    h_1, h_2 = _combine_split(compressed_t, compressed_f)
+    polys = tntt.intt(plan, torch.stack(
+        [compressed_f, compressed_t, h_1, h_2], dim=1))
+    return ((compressed_f, compressed_t, h_1, h_2),
+            tuple(polys[:, i] for i in range(4)))
+
+
 def _prove(witness, dev_pk, dev_srs, transcript, cfg):
-    if not dev_pk.lookup_degenerate:
-        raise NotImplementedError(
-            "only degenerate-lookup keys (q_lookup == 0, empty table) are "
-            "ported; the real-lookup combine_split branch is not")
+    if not dev_pk.lookup_degenerate and witness.q_lookup_zero_mask is None:
+        raise ValueError("a key with a lookup table needs the witness's "
+                         "q_lookup_zero_mask (ProverWitness.from_composer)")
     dev = cfg.device
     n = dev_pk.n
     log_n = dev_pk.log_n
@@ -339,13 +462,24 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     # ------------------------------------------------------------- round 2
     zeta_i = t.challenge_scalar(b"zeta")
     t.append_fr(b"zeta", zeta_i)
-    # all-zero table & q_lookup: f = t = h1 = h2 = 0 and their
-    # commitments are the identity (gen_proof.cuh:107-115 shortcut)
     zero_poly = torch.zeros((FR.L, n), dtype=torch.int32, device=dev)
-    table_poly = f_poly = h_1_poly = h_2_poly = zero_poly
-    t.append_g1(b"f", None)
-    t.append_g1(b"h1", None)
-    t.append_g1(b"h2", None)
+    if dev_pk.lookup_degenerate:
+        # all-zero table & q_lookup: f = t = h1 = h2 = 0 and their
+        # commitments are the identity (gen_proof.cuh:107-115 shortcut)
+        lookup_evals = (zero_poly,) * 4
+        lookup_polys = None
+        table_poly = f_poly = h_1_poly = h_2_poly = zero_poly
+        f_comm = h_1_comm = h_2_comm = None
+    else:
+        lookup_evals, lookup_polys = _lookup_round(
+            plan, dev_pk, witness, FV.const(zeta_i))
+        f_poly, table_poly, h_1_poly, h_2_poly = lookup_polys
+        f_comm, h_1_comm, h_2_comm = commit_batch(
+            dev_srs, torch.stack([f_poly, h_1_poly, h_2_poly], dim=1), cfg)
+    t.append_g1(b"f", f_comm)
+    t.append_g1(b"h1", h_1_comm)
+    t.append_g1(b"h2", h_2_comm)
+    mark("round2 (lookup compress + combine_split + 3 commits)", h_2_poly)
 
     # ------------------------------------------------------------- round 3
     beta_i = t.challenge_scalar(b"beta")
@@ -360,8 +494,9 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
 
     sigma_evals = torch.stack(dev_pk.sigma_evals_n, dim=1)
     num_z, den_z, tot_z, num_2, den_2, tot_2 = _z_parts(
-        sct.roots, wires, sigma_evals, scal(beta_i), scal(gamma_i),
-        scal(delta_i), scal(epsilon_i))
+        sct.roots, wires, sigma_evals, *lookup_evals, scal(beta_i),
+        scal(gamma_i), scal(delta_i), scal(epsilon_i))
+    del lookup_evals
     z_poly = _z_finish(plan, num_z, den_z, mont.host_inverse(FR, tot_z))
     z_2_poly = _z_finish(plan, num_2, den_2, mont.host_inverse(FR, tot_2))
     del num_z, den_z, num_2, den_2
@@ -391,7 +526,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
           "fbsm": scal(fbsm_i), "ca": scal(ca_i), "lookup": scal(lookup_i)}
     t_stack = _quotient(plan, sct, dev_pk, wire_polys[:, 0],
                         wire_polys[:, 1], wire_polys[:, 2], wire_polys[:, 3],
-                        z_poly, z_2_poly, pi_poly, ch)
+                        z_poly, z_2_poly, pi_poly, lookup_polys, ch)
     mark("round4 quotient", t_stack)
     t_comms = commit_batch(dev_srs, t_stack, cfg)
     for i in range(8):
@@ -550,8 +685,8 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
 
     return Proof(
         a_comm=w_comms[0], b_comm=w_comms[1], c_comm=w_comms[2],
-        d_comm=w_comms[3], z_comm=z_comm, f_comm=None, h_1_comm=None,
-        h_2_comm=None, z_2_comm=z_2_comm, t_comms=t_comms,
+        d_comm=w_comms[3], z_comm=z_comm, f_comm=f_comm, h_1_comm=h_1_comm,
+        h_2_comm=h_2_comm, z_2_comm=z_2_comm, t_comms=t_comms,
         aw_opening=aw_opening, saw_opening=saw_opening,
         evaluations=evaluations)
 
