@@ -2,15 +2,27 @@
 """Drive the PyTorch/CUDA port (`zprize_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--height H]
-                          [--phases probe,build,kernels,circuit,h6,main]
+                          [--phases probe,build,kernels,msm,circuit,h6,main]
 
 Phases, in order; each prints a JSON line before it starts and one with its
 seconds when it ends:
   probe    the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc-builds the kernel library from zprize_tpu_torch/csrc
-  kernels  each of the nine kernels against its plain PyTorch version at
-           n = 2^16 + 37 (random + edge values, exact equality), then its
-           time per launch at n = 2^22
+  build    nvcc-builds the kernel library from zprize_tpu_torch/csrc;
+           prints ptxas's registers and spills, SASS instruction counts
+           and the card's measured issue rates of the 32-bit multiply
+           forms a Montgomery product compiles to (int_rate)
+  kernels  each of the nine elementwise kernels against its plain
+           PyTorch version at n = 2^16 + 37 (random + edge values, exact
+           equality), then its time per launch at n = 2^22
+  msm      the MSM's bucket kernels (bucket_acc, bucket_sum) and the
+           tree-level K7 (xyzz_add_pairs) bit-equal to their plain versions
+           on 2^16 points (random, skewed and all-equal digits, every
+           level); then one MSM at the h15 shape (2^22 SRS points, 16-bit
+           windows, seeded scalars) with CUDA-event times of its stages
+           (sort + bounds, chunk list, bucket kernel, partial levels, fold,
+           host fold), its result held to (sum s_i tau^i) G, and each of the
+           three kernels timed and held to its plain version at the shape
+           that MSM gives it
   circuit  a general PLONK circuit with every widget and a 256-row lookup
            table, padded to n = 2^10: spec preprocess on the host, then
            DevSRS.from_ref, DevProverKey.from_ref,
@@ -76,18 +88,190 @@ def fail(msg):
 # ---------------------------------------------------------------------------
 
 CHECK_N = (1 << 16) + 37
-# kernels with no caller in either package: held against their plain
-# versions in the kernels phase, launched by no path
+# kernels that a path does not launch, each held against its plain version
+# all the same: mul3 has no caller in either package; xyzz_add_mixed's
+# device code runs inside bucket_acc; xyzz_add_affine2 is called by
+# device_srs, which only the main path runs after its counts start; and
+# bucket_sum runs only where a bucket has more than msm.CHUNK members,
+# which the circuit's n = 2^10 does not promise
 OFF_PATH = ("mul3", "xyzz_add_mixed")
+NOT_LAUNCHED = {
+    "main": OFF_PATH,
+    "prove_many": OFF_PATH + ("xyzz_add_affine2",),
+    "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
+}
 TIME_N = 1 << 22
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-INT_OPS_S = 67e12              # table's non-tensor 32-bit rate (float32)
+# 32-bit integer multiply-add (and add) instructions per clock per SM on
+# compute capability 9.0: NVIDIA CUDA C++ Programming Guide, arithmetic
+# instruction throughput table; times SMs and the SM clock (int_ops_s)
+INT_OPS_PER_CLOCK_SM = 64
+_RATE = {}
+
+
+def int_ops_s():
+    """32-bit integer operations per second of card 0: 64 a clock per SM
+    at `nvidia-smi --query-gpu=clocks.max.sm`."""
+    if "ops" not in _RATE:
+        import torch
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        if not out:
+            fail("nvidia-smi gave no SM clock")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _RATE.update(mhz=float(out[0]), sms=sms,
+                     ops=INT_OPS_PER_CLOCK_SM * sms * float(out[0]) * 1e6)
+    return _RATE["ops"]
+
+
+# Issue rates, measured on the card, of the two 32-bit multiply forms:
+# mad.lo.u32 (IMAD) and the mad.lo.cc / madc.hi.cc pairs of
+# csrc/field.cuh's carry chains, which ptxas fuses into one
+# IMAD.WIDE.U32(.X) a pair (one 32x32 -> 64-bit product). Each kernel runs
+# 96 of its operations an iteration over independent accumulators.
+_RATE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+extern "C" __global__ void rate_mad_lo(uint32_t* out, uint32_t s, int iters) {
+  uint32_t a = s ^ (blockIdx.x * blockDim.x + threadIdx.x), acc[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) acc[i] = a + i;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 12; ++i)
+        asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(acc[i]) : "r"(s), "r"(a));
+  uint32_t x = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x ^= acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = x;
+}
+// acc[0..11] += (v0..v5) * s as in field.cuh's mac_even: six lo/hi pairs
+// on one carry chain, the carry out into top
+__device__ __forceinline__ void chain(uint32_t* acc, uint32_t& top,
+                                      const uint32_t* v, uint32_t s) {
+  asm volatile(
+      "mad.lo.cc.u32 %0, %13, %19, %0;\n\t"
+      "madc.hi.cc.u32 %1, %13, %19, %1;\n\t"
+      "madc.lo.cc.u32 %2, %14, %19, %2;\n\t"
+      "madc.hi.cc.u32 %3, %14, %19, %3;\n\t"
+      "madc.lo.cc.u32 %4, %15, %19, %4;\n\t"
+      "madc.hi.cc.u32 %5, %15, %19, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %19, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %19, %7;\n\t"
+      "madc.lo.cc.u32 %8, %17, %19, %8;\n\t"
+      "madc.hi.cc.u32 %9, %17, %19, %9;\n\t"
+      "madc.lo.cc.u32 %10, %18, %19, %10;\n\t"
+      "madc.hi.cc.u32 %11, %18, %19, %11;\n\t"
+      "addc.u32 %12, %12, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]),
+        "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
+        "+r"(top)
+      : "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(v[4]), "r"(v[5]),
+        "r"(s));
+}
+// two independent chains interleaved, as field.cuh's even and odd words
+extern "C" __global__ void rate_carry_pair(uint32_t* out, uint32_t s, int iters) {
+  uint32_t a = s ^ (blockIdx.x * blockDim.x + threadIdx.x);
+  uint32_t x0[12], x1[12], t0 = 0, t1 = 0, v[6], s1 = s * 3u + 1u;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x0[i] = a + i, x1[i] = a ^ i;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) v[i] = a * (2u * i + 3u);
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      chain(x0, t0, v, s);
+      chain(x1, t1, v, s1);
+    }
+  uint32_t x = t0 ^ t1;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) x ^= x0[i] ^ x1[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = x;
+}
+extern "C" int rate_launch(int form, int blocks, int threads, int iters,
+                           uint32_t* out, cudaStream_t stream) {
+  if (form == 0) rate_mad_lo<<<blocks, threads, 0, stream>>>(out, 0x9e3779b9u, iters);
+  if (form == 1) rate_carry_pair<<<blocks, threads, 0, stream>>>(out, 0x9e3779b9u, iters);
+  return int(cudaGetLastError());
+}
+"""
+RATE_FORMS = ("mad_lo", "carry_pair")
+
+
+def start_rate_build():
+    """Start nvcc on the rate probe (beside the kernel library's build);
+    returns (process, library path)."""
+    import hashlib
+    from zprize_tpu_torch.fields import kernels
+    d = os.path.join(ROOT, ".torch_ext", "rate-" + hashlib.sha256(
+        _RATE_SRC.encode()).hexdigest()[:16])
+    os.makedirs(d, exist_ok=True)
+    src, lib = os.path.join(d, "rate.cu"), os.path.join(d, "librate.so")
+    with open(src, "w") as f:
+        f.write(_RATE_SRC)
+    cmd = [kernels.nvcc_path(), "-O3", kernels.ARCH_FLAG, "-shared",
+           "-Xcompiler", "-fPIC", "-o", lib, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def measure_rates(proc, lib):
+    """Operations per clock per SM (at clocks.max.sm) of each RATE_FORMS
+    kernel, median of 3 timed launches, and the SASS of the probe."""
+    import ctypes
+    import torch
+    log, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        fail(f"rate probe build failed:\n{log}")
+    h = ctypes.CDLL(lib)
+    h.rate_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    int_ops_s()
+    blocks, threads, iters = _RATE["sms"] * 16, 256, 2048
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for form, name in enumerate(RATE_FORMS):
+        ms = []
+        for rep in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = h.rate_launch(form, blocks, threads, iters, out.data_ptr(),
+                               stream)
+            b.record()
+            torch.cuda.synchronize()
+            if rc != 0:
+                fail(f"rate probe {name} failed to launch ({rc})")
+            if rep:                                 # the first warms up
+                ms.append(a.elapsed_time(b))
+        t = sorted(ms)[1] * 1e-3
+        rates[name] = (blocks * threads * iters * 96 / t
+                       / (_RATE["sms"] * _RATE["mhz"] * 1e6))
+    return {"per_clock_sm": rates, "sass": _sass_counts(lib)}
 
 
 def _field_ops(N):
-    """32-bit integer operations per element: CIOS product = 2 N^2
-    multiply-adds, each a lo and a hi instruction; add/sub ~4 N."""
-    return {"mul": 4 * N * N + 2 * N, "addsub": 4 * N, "neg": 2 * N}
+    """32-bit multiply-add issue slots (64 a clock per SM) per element: a
+    Montgomery product is 2 N^2 32x32 -> 64-bit products (a_j b_i and
+    m p_j), each a lo/hi pair that ptxas fuses into one IMAD.WIDE.U32(.X),
+    which issues at half the IMAD rate (the int_rate line: carry_pair ~31.5
+    a clock per SM, mad_lo ~64), so two slots each; plus N for m; add/sub
+    ~4 N."""
+    return {"mul": 4 * N * N + N, "addsub": 4 * N, "neg": 2 * N}
+
+
+_FQ = _field_ops(12)
+# multiply-adds and add/subs of one point addition, by formula
+# (csrc/field.cuh): K7 xyzz + xyzz 14 products, K8 xyzz + affine 10
+# (ZZ2 = ZZZ2 = 1), K9 affine + affine 6; 7 additions/subtractions each
+K7_OPS = 14 * _FQ["mul"] + 7 * _FQ["addsub"]
+K8_OPS = 10 * _FQ["mul"] + 7 * _FQ["addsub"]
+K9_OPS = 6 * _FQ["mul"] + 7 * _FQ["addsub"]
 
 
 def _rand_field(C, n, rng):
@@ -109,7 +293,13 @@ def _rand_points(n, rng):
     from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
     pool = [g1_mul(G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 64)]
     px, py, _ = g1.affine_points_to_device(pool, "cuda")
-    idx = [torch.from_numpy(rng.integers(0, 64, n)).cuda() for _ in range(4)]
+    # b, c, d are other pool points than a, so no column outside the
+    # special ones doubles (a doubling is a divergent branch of K7-K9
+    # that the MSM's distinct SRS points do not take)
+    first = rng.integers(0, 64, n)
+    idx = [torch.from_numpy(first).cuda()] + [
+        torch.from_numpy((first + rng.integers(1, 64, n)) % 64).cuda()
+        for _ in range(3)]
     ax, ay = px[:, idx[0]], py[:, idx[0]]
     bx, by = px[:, idx[1]], py[:, idx[1]]
     # affine specials
@@ -203,9 +393,40 @@ def _plain(fn):
     return run
 
 
+def compare(name, got, want):
+    """Max |kernel - plain| over the words, which must be 0."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} vs {want.shape}")
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
+    if int(err) != 0:
+        bad = (got != want).reshape(got.shape[0], -1).any(0).nonzero()
+        raise AssertionError(f"{name}: kernel != plain at columns "
+                             f"{bad[:5, 0].tolist()}")
+    return int(err)
+
+
+def record(name, replaces, fn, bytes_moved, ops, errs, reps=10, **extra):
+    """Time `fn` (one kernel launch) and its plain version, hold the two
+    outputs equal, and build the kernel's entry of the `kernels` line."""
+    ms, got = _time(fn, reps)
+    plain_ms, want = _time(_plain(fn), 1)
+    errs.append(compare(f"{name}/timed", got, want))
+    del got, want
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / int_ops_s() * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "zprize_tpu_torch/csrc/kernels.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, **extra}
+
+
 def check_kernels():
-    """Returns {name: record} for the nine kernels; raises on a
-    mismatch, at n = 2^16 + 37 and at the timed n = 2^22."""
+    """Returns {name: record} for the nine elementwise kernels; raises on
+    a mismatch, at n = 2^16 + 37 and at the timed n = 2^22."""
     import numpy as np
     import torch
     from zprize_tpu_torch.fields import kernels
@@ -228,15 +449,6 @@ def check_kernels():
                     (_rand_field(FR, 37 * 4096, rng), 2048)]
     aff, xyzz = _rand_points(n, rng)
     mixed = _mixed_operands(xyzz[0], aff)
-
-    def compare(name, got, want):
-        if got.shape != want.shape:
-            raise AssertionError(f"{name}: shape {got.shape} vs {want.shape}")
-        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max()
-        if int(err) != 0:
-            bad = (got != want).any(0).nonzero()[:5, 0].tolist()
-            raise AssertionError(f"{name}: kernel != plain at columns {bad}")
-        return int(err)
 
     checks = {}
 
@@ -277,20 +489,8 @@ def check_kernels():
     bx = _tile(stage_inputs[0][0], N)
 
     def rec(name, replaces, fn, bytes_moved, ops, field):
-        ms, got = _time(fn, 10)
-        plain_ms, want = _time(_plain(fn), 1)
-        checks[name].append(compare(f"{name}/n={N}", got, want))
-        del got, want
-        t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-        t_ops = ops / INT_OPS_S * 1e3
-        return {"name": name, "route": "cuda",
-                "source": "zprize_tpu_torch/csrc/kernels.cu",
-                "replaces": replaces, "field": field, "launches": None,
-                "max_abs_err": max(checks[name]),
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "n": N}
+        return record(name, replaces, fn, bytes_moved, ops, checks[name],
+                      field=field, n=N)
 
     fq_a, fq_b, fq_c = big["fq"]
     fr_a, fr_b, _ = big["fr"]
@@ -316,26 +516,209 @@ def check_kernels():
     out["mul3"] = rec("mul3", "zprize_tpu/fields/pkern.py:187",
                       lambda: kernels.mul3(FQ.P, fq_a, fq_b, fq_c),
                       4 * 24 * 4 * N, 2 * fq_ops["mul"] * N, "fq")
-    pt_ops = 14 * fq_ops["mul"] + 7 * fq_ops["addsub"]
     out["xyzz_add"] = rec(
         "xyzz_add", "zprize_tpu/fields/pkern.py:215",
         lambda: g1.xyzz_add(bigP, bigQ),
-        3 * 96 * 4 * N, pt_ops * N, "fq")
-    # the lift: two 12-word zero tests and two 12-word selects
+        3 * 96 * 4 * N, K7_OPS * N, "fq")
     out["xyzz_add_mixed"] = rec(
         "xyzz_add_mixed", "zprize_tpu/fields/pkern.py:230",
         lambda: g1.xyzz_add_mixed(*big_mixed),
-        (96 + 48 + 96) * 4 * N, (pt_ops + 4 * 12) * N, "fq")
+        (96 + 48 + 96) * 4 * N, K8_OPS * N, "fq")
     out["xyzz_add_affine2"] = rec(
         "xyzz_add_affine2", "zprize_tpu/fields/pkern.py:245",
         lambda: g1.xyzz_add_affine2(*big_aff),
-        (4 * 24 + 96) * 4 * N, pt_ops * N, "fq")
+        (4 * 24 + 96) * 4 * N, K9_OPS * N, "fq")
     for k, r in out.items():
         emit({"kernel_check": k, "equal": True, "cases": len(checks[k]),
               "ms": r["ms"], "plain_ms": r["plain_ms"]})
     del big, bigP, bigQ, big_aff, big_mixed, bx
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the MSM: bucket kernels, tree-level K7, stage times at the h15 shape
+# ---------------------------------------------------------------------------
+
+MSM_LOG_N = 22
+MSM_WINDOW_BITS = 16
+MSM_CHECK_LOG_N = 16
+MSM_SEED = 20261018
+
+
+def _levels(pts, idx, starts, lens):
+    """The bucket sums of one chunk list, level by level, through the
+    kernels and through the plain versions, held bit-equal at every level;
+    returns the number of levels."""
+    from zprize_tpu_torch.ops import msm
+    nb = starts.shape[0]
+    chunks = msm.chunk_list(starts, lens)
+    part = msm.first_level(pts, idx, chunks, nb)
+    compare("bucket_acc/level0", part,
+            _plain(lambda: msm.first_level(pts, idx, chunks, nb))())
+    levels = 1
+    while not chunks.final:
+        nxt, nchunks = msm.next_level(part, chunks, nb)
+        compare(f"bucket_sum/level{levels}", nxt,
+                _plain(lambda: msm.next_level(part, chunks, nb)[0])())
+        part, chunks, levels = nxt, nchunks, levels + 1
+    return levels
+
+
+def _scalars(n, seed):
+    """Seeded canonical scalars as raw (16, n) int32 limbs (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    raw[15] = rng.integers(0, 0x73ed, size=n)          # below r
+    return raw.astype(np.int32)
+
+
+def _stage(times, name, fn):
+    """Run one MSM stage between two CUDA events, then synchronize."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    times.setdefault(name, []).append(a.elapsed_time(b))
+    return out
+
+
+def msm_stages(pts, raw, wb, times):
+    """One MSM through its stages (msm.msm_windows + the host fold), each
+    timed; returns (affine result, intermediates)."""
+    from zprize_tpu_torch.curve import g1
+    from zprize_tpu_torch.fields.mont import FQ
+    from zprize_tpu_torch.ops import msm
+    L = FQ.L
+
+    def sort():
+        d = msm.limbs16_to_digits(raw, wb)
+        return d.shape[0], msm.sort_members(d, wb)
+    W, (idx, starts, lens) = _stage(times, "sort_bounds", sort)
+    nb = starts.shape[0]
+    chunks = _stage(times, "chunk_list",
+                    lambda: msm.chunk_list(starts, lens))
+    part = _stage(times, "bucket_kernel",
+                  lambda: msm.first_level(pts, idx, chunks, nb))
+    S = _stage(times, "partial_levels",
+               lambda: msm.sum_levels(part, chunks, nb))
+    wp = _stage(times, "fold", lambda: msm.weighted_bucket_fold(
+        S.reshape(4 * L, W, 1 << wb)))
+    res = _stage(times, "host_fold", lambda: msm.fold_windows_host(
+        g1.xyzz_to_affine_host(wp), wb))
+    return res, {"idx": idx, "starts": starts, "lens": lens,
+                 "chunks": chunks, "part": part, "S": S, "W": W}
+
+
+def check_msm():
+    """Returns {name: record} for bucket_acc, bucket_sum and
+    xyzz_add_pairs; raises on a mismatch or a wrong MSM."""
+    import numpy as np
+    import torch
+    from zprize_tpu_torch.curve import g1
+    from zprize_tpu_torch.fields.limb import limbs_to_ints
+    from zprize_tpu_torch.fields.mont import FQ
+    from zprize_tpu_torch.ops import msm
+    from zprize_tpu_torch.params import R_MOD
+    from zprize_tpu_torch.protocol.srs import device_srs
+    from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
+    L = FQ.L
+    rng = np.random.default_rng(20261018)
+
+    # bit-equality at 2^16 points, 8-bit digits in 4 windows: random;
+    # 3 of 4 points in one bucket (48-of-64 skew); all digits equal
+    n = 1 << MSM_CHECK_LOG_N
+    (x, y, _), _, _ = device_srs(n - 1, device="cuda")
+    pts = g1.pack_affine(x, y)
+    levels = {}
+    for case in ("random", "skewed", "equal"):
+        d = rng.integers(0, 256, size=(4, n))
+        if case == "skewed":
+            d[:, rng.permutation(n)[:3 * n // 4]] = 77
+        if case == "equal":
+            d[:] = 200
+        digits = torch.from_numpy(d).to("cuda")
+        levels[case] = _levels(pts, *msm.sort_members(digits, 8))
+    emit({"msm_check": {"points": n, "window_bits": 8, "windows": 4,
+                        "bit_equal": True, "levels": levels}})
+    del x, y, pts
+
+    # the h15 shape: 2^22 SRS points, 16-bit windows
+    n = 1 << MSM_LOG_N
+    wb = MSM_WINDOW_BITS
+    (x, y, _), _, tau = device_srs(n - 1, device="cuda")
+    pts = g1.pack_affine(x, y)
+    del x, y
+    raw = torch.from_numpy(_scalars(n, MSM_SEED)).to("cuda")
+    times = {}
+    msm_stages(pts, raw, wb, {})                   # warm-up
+    for _ in range(3):
+        res, mid = msm_stages(pts, raw, wb, times)
+    # (sum_i s_i tau^i) G is the MSM over the SRS powers tau^i G
+    e = 0
+    for s in reversed(limbs_to_ints(raw.cpu().numpy().astype(np.uint32).T)):
+        e = (e * tau + s) % R_MOD
+    if res != g1_mul(G1_GEN, e):
+        raise AssertionError("h15-shape MSM != (sum s_i tau^i) G")
+
+    c, idx, nb = mid["chunks"], mid["idx"], mid["starts"].shape[0]
+    levels, cc = 1, c
+    while not cc.final:
+        cc = msm.chunk_list(cc.offsets, cc.counts)
+        levels += 1
+    lens = (c.end - c.start).to(torch.int64)
+    pairs = int((lens >= 2).sum())
+    mixed = int((lens - 2).clamp(min=0).sum())
+    chunks = int(lens.shape[0])
+    col = torch.arange(chunks, dtype=torch.int32, device="cuda")
+
+    def new(m, zero=False):
+        fn = torch.zeros if zero else torch.empty
+        return fn((4 * L, m), dtype=torch.int32, device="cuda")
+    recs = {}
+    recs["bucket_acc"] = record(
+        "bucket_acc", "zprize_tpu/fields/pkern.py:245",
+        lambda: msm.bucket_acc(pts, idx, c.start, c.end, col, new(chunks)),
+        n * 96 + idx.numel() * 4 + chunks * (12 + 384),
+        pairs * K9_OPS + mixed * K8_OPS, [0], reps=3,
+        members=int(lens.sum()), chunks=chunks)
+    # the first partial level (the one every h15 MSM runs)
+    c1 = msm.chunk_list(c.offsets, c.counts)
+    l1 = (c1.end - c1.start).to(torch.int64)
+    m1 = int(l1.shape[0])
+    col1 = c1.bucket if c1.final else torch.arange(
+        m1, dtype=torch.int32, device="cuda")
+    part = mid["part"]
+    recs["bucket_sum"] = record(
+        "bucket_sum", "zprize_tpu/fields/pkern.py:215",
+        lambda: msm.bucket_sum(part, c1.start, c1.end, col1,
+                               new(nb if c1.final else m1, c1.final)),
+        part.shape[1] * 384 + m1 * (12 + 384),
+        int((l1 - 1).sum()) * K7_OPS, [0], reps=10,
+        partials=int(part.shape[1]), chunks=m1)
+    # the fold's first tree level: (4L, W * B2, B1) row sums
+    W = mid["W"]
+    B1 = 1 << ((1 << wb).bit_length() // 2)
+    G = mid["S"].reshape(4 * L, -1, B1)
+    recs["xyzz_add_pairs"] = record(
+        "xyzz_add_pairs", "zprize_tpu/fields/pkern.py:215",
+        lambda: g1.xyzz_add_pairs(G),
+        G.numel() * 4 * 3 // 2, G.shape[1] * (B1 // 2) * K7_OPS, [0],
+        reps=10, rows=int(G.shape[1]), m=B1)
+    stage_ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    emit({"msm": {"points": n, "window_bits": wb, "windows": W,
+                  "buckets": nb, "chunks": chunks,
+                  "levels": levels,
+                  "stage_ms": stage_ms,
+                  "stage_ms_runs": times,
+                  "total_ms": sum(stage_ms.values()),
+                  "result_equals_sum_s_tau_G": True}})
+    torch.cuda.empty_cache()
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -557,7 +940,7 @@ def _profile_prove(prove, height):
 def gen_proof(height, impls=("kernel",), timed=False, profile=False,
               on_done=None, many_counts=None):
     """SRS -> layout -> preprocess -> witness -> prove (once per impl) ->
-    verify. Returns (proof bytes per impl, phase seconds, pass counts).
+    verify. Returns (proof bytes per impl, phase seconds).
     timed: log preprocess phases and prove rounds; on_done: called right
     after the verify; many_counts: a dict, to run prove_many after that
     (see _prove_many) and receive its kernel launches; profile: one more
@@ -595,12 +978,10 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
     pk, vk = phase("preprocess", lambda: preprocess_layout(
         lay, dev_srs, tr, cfg,
         log=lambda s: emit({"log": s}) if timed else None))
-    pre_passes = list(cfg.commit_passes)
     leaves = FR.tensor(_leaves(lay.m_leaves, height), "cuda")
     wires, root, _ = phase("witness", lambda: lay.witness(leaves))
     pi = {lay.root_gate_pos: (-root) % R_MOD}
     proofs = {}
-    passes = {}
     for impl in impls:
         t = TranscriptProtocol(b"Merkle tree")
         seed_transcript(t, vk)
@@ -610,7 +991,6 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
         proof = phase(f"prove_{impl}", lambda: pt.prove_torch(
             pt.ProverWitness(wires, pi), pk, dev_srs, t, c))
         proofs[impl] = serialize_proof(proof)
-        passes[impl] = c.commit_passes
         vtr = TranscriptProtocol(b"Merkle tree")
         seed_transcript(vtr, vk)
         ok = phase(f"verify_{impl}",
@@ -629,7 +1009,7 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
         _profile_prove(lambda: pt.prove_torch(
             pt.ProverWitness(wires, pi), pk, dev_srs, t,
             pt.ProverConfig(device="cuda")), height)
-    return proofs, secs, {"preprocess": pre_passes, **passes}
+    return proofs, secs
 
 
 def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
@@ -680,12 +1060,12 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
 
 
 def check_h6():
-    proofs, secs, passes = gen_proof(6, impls=("kernel", "plain"))
+    proofs, secs = gen_proof(6, impls=("kernel", "plain"))
     if proofs["kernel"] != proofs["plain"]:
         raise AssertionError("h6: kernel-path proof bytes differ from the "
                              "plain-path proof")
     emit({"h6": {"proof_bytes_equal": True, "bytes": len(proofs["kernel"]),
-                 "seconds": secs, "commit_passes": passes}})
+                 "seconds": secs}})
 
 
 def main_path(height, profile=False):
@@ -705,12 +1085,12 @@ def main_path(height, profile=False):
         torch.cuda.reset_peak_memory_stats()
 
     with Phase(f"main_h{height}"):
-        _, secs, passes = gen_proof(
+        _, secs = gen_proof(
             height, timed=True, profile=profile, on_done=on_done,
             many_counts=counts["prove_many"])
     emit({"main": {"height": height, "n": 1 << (
         (4 + 193 * ((1 << (height - 1)) - 1) + 1 - 1).bit_length()),
-        "seconds": secs, "commit_passes": passes,
+        "seconds": secs,
         "max_memory_allocated": peak["main"],
         "max_memory_allocated_prove_many":
             torch.cuda.max_memory_allocated(),
@@ -719,10 +1099,10 @@ def main_path(height, profile=False):
 
 
 def _require_launched(path, counts):
-    """Every kernel that the paths run must have launched in `path`."""
+    """Every kernel that `path` runs must have launched in it."""
     from zprize_tpu_torch.fields import kernels
     missing = [k for k in kernels.KERNEL_NAMES
-               if k not in OFF_PATH and counts[k] == 0]
+               if k not in NOT_LAUNCHED[path] and counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the {path} path: {missing}")
 
@@ -773,11 +1153,46 @@ def _ptxas_summary(log):
     return out
 
 
+def _sass_counts(lib):
+    """`cuobjdump -sass` of a kernel library -> {kernel: instruction counts}
+    (IMAD.WIDE: one 32x32 -> 64-bit product; imad: the other multiply-adds
+    apart from the IMAD.MOV/SHL/IADD forms, which move, shift or add); {}
+    where the toolkit has no cuobjdump."""
+    from zprize_tpu_torch.fields import kernels
+    exe = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(exe):
+        return {}
+    out = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                         timeout=300).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = _kernel_name(m.group(1)) or m.group(1)
+            counts[name] = {"imad": 0, "imad_wide": 0, "imad_other": 0,
+                            "iadd3": 0, "total": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", ln)
+        if m and name:
+            op, c = m.group(1), counts[name]
+            c["total"] += 1
+            if op.startswith(("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")):
+                c["imad_other"] += 1
+            elif op.startswith("IMAD.WIDE"):
+                c["imad_wide"] += 1
+            elif op.startswith("IMAD"):
+                c["imad"] += 1
+            elif op.startswith("IADD3"):
+                c["iadd3"] += 1
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--height", type=int, default=MAIN_HEIGHT)
     ap.add_argument("--phases",
-                    default="probe,build,kernels,circuit,h6,main")
+                    default="probe,build,kernels,msm,circuit,h6,main")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more main-path prove")
     args = ap.parse_args()
@@ -800,7 +1215,10 @@ def main():
         nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
                               capture_output=True, text=True,
                               timeout=60).stdout.strip().splitlines()
+        int_ops_s()
         emit({"probe": {"card": card,
+                        "sm_clock_max_mhz": _RATE["mhz"], "sms": _RATE["sms"],
+                        "int_ops_s": _RATE["ops"],
                         "device": torch.cuda.get_device_name(0),
                         "count": torch.cuda.device_count(),
                         "torch": torch.__version__,
@@ -809,15 +1227,21 @@ def main():
                         "python": sys.version.split()[0]}})
 
     with Phase("build"):
+        rate_build = start_rate_build()
         kernels.load_library()
         info = dict(kernels.BUILD_INFO)
         emit({"build": info,
               "ptxas": _ptxas_summary(info.pop("ptxas", ""))})
+        emit({"sass": _sass_counts(info["path"])})
+        emit({"int_rate": measure_rates(*rate_build)})
 
     results = {}
     if "kernels" in phases:
         with Phase("kernels"):
             results = check_kernels()
+    if "msm" in phases:
+        with Phase("msm"):
+            results.update(check_msm())
     path_counts = {}
     if "circuit" in phases:
         with Phase("circuit"):

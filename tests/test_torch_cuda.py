@@ -10,8 +10,8 @@ import torch
 from zprize_tpu_torch.curve import g1
 from zprize_tpu_torch.fields import kernels, mont
 from zprize_tpu_torch.fields.mont import FR, FQ
-from zprize_tpu_torch.ops import ntt
-from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
+from zprize_tpu_torch.ops import msm, ntt
+from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul, g1_neg
 
 N = 4099        # ragged: not a multiple of a thread block
 
@@ -108,3 +108,55 @@ def test_ntt_tables_are_cached_once_per_card(card):
     assert ntt.get_plan(4, "cuda") is ntt.get_plan(4, idx)
     assert ntt.get_subcoset_tables(4, "cuda") is \
         ntt.get_subcoset_tables(4, idx)
+
+
+@pytest.mark.cuda
+def test_xyzz_add_pairs_matches_elementwise(card):
+    """The tree-level K7 against K7 on the strided halves, with an odd
+    tail, over several rows."""
+    rng = np.random.default_rng(6)
+    pool = [g1_mul(G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 8)]
+    px, py, _ = g1.affine_points_to_device(pool, card)
+    i = [torch.from_numpy(rng.integers(0, 8, 3 * 1001)).to(card)
+         for _ in range(2)]
+    p = g1.xyzz_add_affine2(px[:, i[0]].contiguous(), py[:, i[0]].contiguous(),
+                            px[:, i[1]].contiguous(), py[:, i[1]].contiguous())
+    p = p.reshape(96, 3, 1001)
+    got = g1.xyzz_add_pairs(p)
+    want = g1.xyzz_add(p[..., 0:1000:2], p[..., 1:1000:2])
+    assert torch.equal(got[..., :500], want)
+    assert torch.equal(got[..., 500], p[..., 1000])
+    assert torch.equal(got, plain(g1.xyzz_add_pairs, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "skewed", "equal"])
+def test_bucket_kernels_match_plain(card, case):
+    """Both bucket kernels bit for bit against their plain versions on
+    every level of one MSM's chunk list (8-bit windows over 2^12 points,
+    with identity, equal and opposite points among them)."""
+    rng = np.random.default_rng(7)
+    n = 1 << 12
+    pool = [g1_mul(G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 64)]
+    pool[3] = None
+    pool[5] = g1_neg(pool[4])
+    px, py, _ = g1.affine_points_to_device(pool, card)
+    i = torch.from_numpy(rng.integers(0, 64, n)).to(card)
+    pts = g1.pack_affine(px[:, i], py[:, i])
+    if case == "random":
+        digits = rng.integers(0, 256, (2, n))
+    elif case == "skewed":
+        digits = rng.integers(0, 256, (2, n))
+        digits[:, : 3 * n // 4] = 77
+    else:
+        digits = np.full((2, n), 200)
+    idx, starts, lens = msm.sort_members(
+        torch.from_numpy(digits).to(card), 8)
+    chunks = msm.chunk_list(starts, lens)
+    nb = starts.shape[0]
+    part = msm.first_level(pts, idx, chunks, nb)
+    assert torch.equal(part, plain(msm.first_level, pts, idx, chunks, nb))
+    while not chunks.final:
+        nxt, nchunks = msm.next_level(part, chunks, nb)
+        assert torch.equal(nxt, plain(msm.next_level, part, chunks, nb)[0])
+        part, chunks = nxt, nchunks

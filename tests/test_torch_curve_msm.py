@@ -1,10 +1,12 @@
 """The port's curve and MSM layer (`zprize_tpu_torch.curve.g1`,
 `ops.msm`) against the JAX package: the plain versions of the point
 kernels K7/K9 vs `zprize_tpu.curve.g1` (XLA path) coordinate for
-coordinate and K8 vs `zprize_tpu.fields.pkern` in interpret mode, the MSM vs the oracle `zprize_tpu.ref.curve.g1_msm` that
-`zprize_tpu.ops.msm` is pinned to (its full window grid takes minutes to
-compile on a CPU) and its digit/capacity helpers vs `zprize_tpu.ops.msm`
-directly, and the multi-pass overflow drain. Exact comparisons."""
+coordinate and K8 vs `zprize_tpu.fields.pkern` in interpret mode, the
+chunked bucket MSM (plain versions of its kernels) vs the oracle
+`zprize_tpu.ref.curve.g1_msm` that `zprize_tpu.ops.msm` is pinned to (its
+full window grid takes minutes to compile on a CPU) on random, skewed,
+equal and zero scalars and special points, and its digit helpers vs
+`zprize_tpu.ops.msm` directly. Exact comparisons."""
 
 import random
 
@@ -133,38 +135,9 @@ def _raw(scalars):
         .astype(np.int32))
 
 
-@pytest.mark.parametrize("window_bits", [4, 8])
-def test_msm_matches_oracle(window_bits):
-    rng = random.Random(5)
-    n = 64
-    pts = [g1_mul(G1_GEN, rng.randrange(1, 1000)) for _ in range(n)]
-    pts[7] = None
-    pts[10] = pts[11]                    # equal points in one bucket
-    scalars = [rng.randrange(R_MOD) for _ in range(n)]
-    scalars[3] = 0
-    scalars[5] = 1
-    dev = g1.affine_points_to_device(pts, "cpu")
-    assert msm.msm(dev, _raw(scalars), window_bits) == g1_msm(pts, scalars)
-    assert msm.msm(dev, _raw([0] * n), window_bits) is None
-
-
-def test_msm_helpers_match_jax():
-    for n in (1, 100, 1 << 9, 1 << 13, 1 << 19, 1 << 22):
-        assert msm.auto_window_bits(n) == jmsm.auto_window_bits(n)
-        for wb in (4, 8, 16):
-            assert msm.bucket_capacity(n, wb) == jmsm.bucket_capacity(n, wb)
-    scalars = [random.Random(6).randrange(R_MOD) for _ in range(33)]
-    raw = _raw(scalars)
-    for wb in (2, 4, 8, 16):
-        want = jmsm.limbs16_to_digits(jnp.asarray(
-            raw.numpy().astype(np.uint32)), wb)
-        got = msm.limbs16_to_digits(raw, wb)
-        assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
-
-
 def _skewed():
     """One scalar repeated for 48 of 64 points: its digit fills the same
-    bucket in every window, far beyond a capacity of 8."""
+    bucket in every window."""
     rng = random.Random(7)
     n = 64
     pts = [g1_mul(G1_GEN, rng.randrange(1, 1000)) for _ in range(n)]
@@ -173,21 +146,77 @@ def _skewed():
     return pts, scalars
 
 
-def test_msm_overflow_drained_by_extra_passes():
-    pts, scalars = _skewed()
-    stats = {}
-    got = msm.msm(g1.affine_points_to_device(pts, "cpu"), _raw(scalars),
-                  window_bits=4, capacity=8, stats=stats)
-    assert got == g1_msm(pts, scalars)
-    assert stats["passes"] >= 6                       # 48 / 8 slots
+def _msm_case(case):
+    rng = random.Random(5)
+    n = 64
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1000)) for _ in range(n)]
+    scalars = [rng.randrange(R_MOD) for _ in range(n)]
+    if case == "skewed":
+        return _skewed()
+    if case == "equal":
+        return pts, [scalars[0]] * n
+    if case == "zero":
+        return pts, [0] * n
+    if case == "specials":
+        # identity points, equal points and P, -P in one bucket
+        pts[7] = None
+        pts[10] = pts[11]
+        pts[12] = g1_neg(pts[13])
+        for i in (7, 10, 11, 12, 13):
+            scalars[i] = 0xABCDEF
+        scalars[3] = 0
+        scalars[5] = 1
+    return pts, scalars
 
 
-def test_msm_undrained_overflow_raises():
-    pts, scalars = _skewed()
+# (case, window bits, CHUNK): CHUNK = 8 makes the skewed bucket (48 members
+# in every window) take three levels; 5 and 3 divide no bucket size there
+@pytest.mark.parametrize("case, window_bits, chunk", [
+    ("random", 4, 32), ("random", 8, 32), ("skewed", 4, 8),
+    ("equal", 4, 5), ("zero", 8, 32), ("specials", 4, 3),
+    ("specials", 8, 32)])
+def test_msm_matches_oracle(monkeypatch, case, window_bits, chunk):
+    monkeypatch.setattr(msm, "CHUNK", chunk)
+    pts, scalars = _msm_case(case)
     x, y, _ = g1.affine_points_to_device(pts, "cpu")
-    digits = msm.limbs16_to_digits(_raw(scalars), 4)
-    with pytest.raises(RuntimeError, match="overflow not drained"):
-        msm.msm_window_grid(x, y, digits, 4, 8, max_passes=3)
+    packed = g1.pack_affine(x, y)
+    assert msm.msm(packed, _raw(scalars), window_bits) == \
+        g1_msm(pts, scalars)
+
+
+def test_chunk_list_splits_runs_evenly(monkeypatch):
+    """Each run cut into ceil(len / CHUNK) chunks of sizes that differ by
+    at most one, covering the run in order; `final` once every bucket has
+    at most one chunk."""
+    monkeypatch.setattr(msm, "CHUNK", 4)
+    lens = torch.tensor([0, 1, 4, 5, 9, 0, 13])
+    starts = torch.cumsum(lens, 0) - lens
+    ch = msm.chunk_list(starts, lens)
+    assert ch.counts.tolist() == [0, 1, 1, 2, 3, 0, 4]
+    assert not ch.final
+    got = {}
+    for s, e, b in zip(ch.start.tolist(), ch.end.tolist(),
+                       ch.bucket.tolist()):
+        got.setdefault(b, []).append((s, e))
+    for b, runs in got.items():
+        assert runs[0][0] == starts[b] and runs[-1][1] == starts[b] + lens[b]
+        assert all(r[1] == q[0] for r, q in zip(runs, runs[1:]))
+        sizes = [e - s for s, e in runs]
+        assert max(sizes) <= 4 and max(sizes) - min(sizes) <= 1
+    nxt = msm.chunk_list(ch.offsets, ch.counts)
+    assert nxt.final and nxt.bucket.tolist() == [1, 2, 3, 4, 6]
+
+
+def test_msm_helpers_match_jax():
+    for n in (1, 100, 1 << 9, 1 << 13, 1 << 19, 1 << 22):
+        assert msm.auto_window_bits(n) == jmsm.auto_window_bits(n)
+    scalars = [random.Random(6).randrange(R_MOD) for _ in range(33)]
+    raw = _raw(scalars)
+    for wb in (2, 4, 8, 16):
+        want = jmsm.limbs16_to_digits(jnp.asarray(
+            raw.numpy().astype(np.uint32)), wb)
+        got = msm.limbs16_to_digits(raw, wb)
+        assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
 
 
 def test_affine_identity_encoding():

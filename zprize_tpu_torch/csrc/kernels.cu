@@ -1,6 +1,6 @@
-// The nine field/curve kernels of the port, one thread per element, with a
-// plain C interface (bound from Python through ctypes by
-// `zprize_tpu_torch/fields/kernels.py`).
+// The field/curve kernels of the port, one thread per element (or per
+// chunk of bucket members), with a plain C interface (bound from Python
+// through ctypes by `zprize_tpu_torch/fields/kernels.py`).
 //
 // Each replaces one Pallas entry point of `zprize_tpu/fields/pkern.py`:
 //   zk_mul             K1 pkern.mul            a*b*R^-1        Fr, Fq
@@ -10,19 +10,29 @@
 //   zk_butterfly_stage K5 pkern.mul_add_sub    (u+vw, u-vw)    Fr
 //   zk_mul3            K6 pkern.mul3           a*b*c*R^-2      Fr, Fq
 //   zk_xyzz_add        K7 pkern.xyzz_add       xyzz + xyzz     Fq
+//   zk_xyzz_add_pairs  K7 over one tree level (adjacent column pairs)
 //   zk_xyzz_add_mixed  K8 pkern.xyzz_add_mixed xyzz + affine   Fq
 //   zk_xyzz_add_affine2 K9 pkern.xyzz_add_affine2 affine+affine Fq
+//   zk_bucket_acc      MSM bucket sums, first level: K9's then K8's body
+//                      over gathered members (the job of K9 and of K7's
+//                      tree levels in pkern's MSM)
+//   zk_bucket_sum      MSM bucket sums, later levels: K7's body
 //
 // Bound: the (L, n) layout stores 16 bits in every 32-bit word, so the field
 // ops move 2x the bytes of a packed layout and are memory-bound on an H100
 // (Fr add: 192 B per element for ~30 integer ops). The curve kernels do
-// ~14-22 Fq products (~300 multiply-adds each) per ~1.2 KB and are bound by
-// integer multiply throughput. K6 keeps a*b in registers, so it moves 4 (not
-// 6) field elements per column; K8 reads an affine operand (48 words) where
-// K7 reads a second xyzz one (96). Design: the batch axis is the fastest-moving
-// one, so the 32 threads of a warp read 32 consecutive words of each limb
-// row (coalesced); limbs live in registers; the tail is masked so any n
-// works. Every launcher returns cudaGetLastError().
+// 6-14 Fq products of 588 32-bit multiply-adds each per ~1.2 KB and are
+// bound by the integer multiply-add rate (64 per clock per SM on sm_90).
+// Design: the batch axis is the fastest-moving one, so the 32 threads of a
+// warp read 32 consecutive words of each limb row (coalesced); limbs live
+// in registers; the tail is masked so any n works. The curve kernels keep
+// one point in registers and read the other operand's coordinates when
+// the formula needs them (field.cuh); they carry no minimum-blocks launch
+// bound, since every budget that would fit more blocks on an SM made ptxas
+// spill. The bucket kernels gather points from the point-major SRS copy (96 B
+// per point, six 16-byte loads) and sum up to msm.CHUNK members a thread,
+// so no slot grid is padded and no gathered copy is written. Every
+// launcher returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -130,21 +140,83 @@ __device__ __forceinline__ void store_xyzz(uint32_t* base, long long stride,
   store_fe<12>(base + 72 * stride, stride, col, p.ZZZ);
 }
 
-// p, q: (96, n) stacked X, Y, ZZ, ZZZ (24 limb rows each)
+// operand sources of the curve formulas (field.cuh)
+// xyzz point at column `col` of a (96, stride) limb array
+struct LimbXyzz {
+  const uint32_t* base;
+  long long stride, col;
+  __device__ __forceinline__ void load(int c, uint32_t* w) const {
+    load_fe<12>(w, base + 24LL * c * stride, stride, col);
+  }
+};
+
+// affine point at column `col` of two (24, stride) limb arrays
+struct LimbAffine {
+  const uint32_t *x, *y;
+  long long stride, col;
+  __device__ __forceinline__ void load_x(uint32_t* w) const {
+    load_fe<12>(w, x, stride, col);
+  }
+  __device__ __forceinline__ void load_y(uint32_t* w) const {
+    load_fe<12>(w, y, stride, col);
+  }
+};
+
+// affine point of the point-major SRS copy: 24 packed words, x then y
+// (96 B, six 16-byte loads)
+struct PackedAffine {
+  const uint32_t* row;
+  __device__ __forceinline__ void load4(uint32_t* w, int q) const {
+    const uint4* r = reinterpret_cast<const uint4*>(row) + q;
+#pragma unroll
+    for (int k = 0; k < 3; k++) {
+      const uint4 v = r[k];
+      w[4 * k] = v.x;
+      w[4 * k + 1] = v.y;
+      w[4 * k + 2] = v.z;
+      w[4 * k + 3] = v.w;
+    }
+  }
+  __device__ __forceinline__ void load_x(uint32_t* w) const { load4(w, 0); }
+  __device__ __forceinline__ void load_y(uint32_t* w) const { load4(w, 3); }
+};
+
+// K7, p, q: (96, n) stacked X, Y, ZZ, ZZZ (24 limb rows each)
 __global__ void __launch_bounds__(kPointThreads)
 xyzz_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
                 uint32_t* __restrict__ out, long long n) {
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
-  Xyzz a, b, r;
-  load_xyzz(a, p, n, col);
-  load_xyzz(b, q, n, col);
-  xyzz_add(r, a, b);
-  store_xyzz(out, n, col, r);
+  Xyzz acc;
+  load_xyzz(acc, q, n, col);
+  xyzz_add_to(acc, LimbXyzz{p, n, col});
+  store_xyzz(out, n, col, acc);
 }
 
-// xyzz p (96, n) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity.
-// The identity test reads (qx, qy) before the lift (ZZ = ZZZ = 1).
+// K7 over one tree level: p (96, rows * m) -> out (96, rows * h) with
+// h = ceil(m / 2), out[r, i] = p[r, 2i] + p[r, 2i + 1] and an odd tail
+// p[r, m - 1] copied (the sum with the identity)
+__global__ void __launch_bounds__(kPointThreads)
+xyzz_add_pairs_kernel(const uint32_t* __restrict__ p,
+                      uint32_t* __restrict__ out, long long rows,
+                      long long m) {
+  const long long h = (m + 1) / 2;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * h) return;
+  const long long r = t / h;
+  const long long a = r * m + 2 * (t - r * h);
+  const long long n = rows * m;
+  Xyzz acc;
+  if (a + 1 < (r + 1) * m) {
+    load_xyzz(acc, p, n, a + 1);
+    xyzz_add_to(acc, LimbXyzz{p, n, a});
+  } else {
+    load_xyzz(acc, p, n, a);
+  }
+  store_xyzz(out, rows * h, t, acc);
+}
+
+// K8, xyzz p (96, n) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity
 __global__ void __launch_bounds__(kPointThreads)
 xyzz_add_mixed_kernel(const uint32_t* __restrict__ p,
                       const uint32_t* __restrict__ qx,
@@ -152,16 +224,13 @@ xyzz_add_mixed_kernel(const uint32_t* __restrict__ p,
                       uint32_t* __restrict__ out, long long n) {
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
-  Xyzz a, b, r;
-  load_xyzz(a, p, n, col);
-  load_fe<12>(b.X, qx, n, col);
-  load_fe<12>(b.Y, qy, n, col);
-  affine_lift(b);
-  xyzz_add(r, a, b);
-  store_xyzz(out, n, col, r);
+  Xyzz acc;
+  load_xyzz(acc, p, n, col);
+  xyzz_add_mixed_to(acc, LimbAffine{qx, qy, n, col});
+  store_xyzz(out, n, col, acc);
 }
 
-// affine (px, py) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity
+// K9, affine (px, py) + affine (qx, qy) -> xyzz (96, n); (0, 0) = identity
 __global__ void __launch_bounds__(kPointThreads)
 xyzz_add_affine2_kernel(const uint32_t* __restrict__ px,
                         const uint32_t* __restrict__ py,
@@ -170,15 +239,65 @@ xyzz_add_affine2_kernel(const uint32_t* __restrict__ px,
                         uint32_t* __restrict__ out, long long n) {
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
-  Xyzz a, b, r;
-  load_fe<12>(a.X, px, n, col);
-  load_fe<12>(a.Y, py, n, col);
-  load_fe<12>(b.X, qx, n, col);
-  load_fe<12>(b.Y, qy, n, col);
-  affine_lift(a);
-  affine_lift(b);
-  xyzz_add(r, a, b);
-  store_xyzz(out, n, col, r);
+  Xyzz acc;
+  uint32_t bx[12], by[12];
+  load_fe<12>(acc.X, px, n, col);
+  load_fe<12>(acc.Y, py, n, col);
+  load_fe<12>(bx, qx, n, col);
+  load_fe<12>(by, qy, n, col);
+  affine_add2(acc, bx, by);
+  store_xyzz(out, n, col, acc);
+}
+
+// MSM bucket sums, first level. Chunk c holds the sorted bucket members
+// idx[start[c]], .., idx[end[c] - 1] (point numbers into pts, the
+// point-major SRS copy); one thread gathers them and adds them in order:
+// the first two with K9's body, each later one with K8's (xyzz + affine),
+// a chunk of one is lifted. The sum goes to column col[c] of out
+// (96, out_n).
+__global__ void __launch_bounds__(kPointThreads)
+bucket_acc_kernel(const uint32_t* __restrict__ pts,
+                  const int* __restrict__ idx, const int* __restrict__ start,
+                  const int* __restrict__ end, const int* __restrict__ col,
+                  uint32_t* __restrict__ out, long long out_n,
+                  long long chunks) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= chunks) return;
+  const int s = start[c], e = end[c];
+  Xyzz acc;
+  const PackedAffine a{pts + 24LL * idx[s]};
+  a.load_x(acc.X);
+  a.load_y(acc.Y);
+  if (e - s == 1) {
+    affine_lift(acc);
+  } else {
+    uint32_t bx[12], by[12];
+    const PackedAffine b{pts + 24LL * idx[s + 1]};
+    b.load_x(bx);
+    b.load_y(by);
+    affine_add2(acc, bx, by);
+    for (int k = s + 2; k < e; k++)
+      xyzz_add_mixed_to(acc, PackedAffine{pts + 24LL * idx[k]});
+  }
+  store_xyzz(out, out_n, col[c], acc);
+}
+
+// MSM bucket sums, later levels: chunk c sums the xyzz partials in columns
+// start[c] .. end[c] - 1 of part (96, part_n), each added as the first
+// operand of K7's body (acc = part[k] + acc), into column col[c] of out.
+__global__ void __launch_bounds__(kPointThreads)
+bucket_sum_kernel(const uint32_t* __restrict__ part, long long part_n,
+                  const int* __restrict__ start, const int* __restrict__ end,
+                  const int* __restrict__ col, uint32_t* __restrict__ out,
+                  long long out_n, long long chunks) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= chunks) return;
+  const int s = start[c], e = end[c];
+  Xyzz acc;
+  load_xyzz(acc, part, part_n, s);
+  for (int k = s + 1; k < e; k++)
+    xyzz_add_to(acc, LimbXyzz{part, part_n, k});
+  store_xyzz(out, out_n, col[c], acc);
 }
 
 template <int OPK>
@@ -294,6 +413,46 @@ int zk_xyzz_add_affine2(const void* px, const void* py, const void* qx,
       static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
       static_cast<const uint32_t*>(qx), static_cast<const uint32_t*>(qy),
       static_cast<uint32_t*>(out), n);
+  return (int)cudaGetLastError();
+}
+
+int zk_xyzz_add_pairs(const void* p, void* out, long long rows, long long m,
+                      void* stream) {
+  const long long total = rows * ((m + 1) / 2);
+  if (total <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  xyzz_add_pairs_kernel<<<blocks_for(total, kPointThreads), kPointThreads, 0,
+                          s>>>(static_cast<const uint32_t*>(p),
+                               static_cast<uint32_t*>(out), rows, m);
+  return (int)cudaGetLastError();
+}
+
+// pts: (npts, 24) packed affine points; idx, start, end, col: int32
+int zk_bucket_acc(const void* pts, const void* idx, const void* start,
+                  const void* end, const void* col, void* out,
+                  long long out_n, long long chunks, void* stream) {
+  if (chunks <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  bucket_acc_kernel<<<blocks_for(chunks, kPointThreads), kPointThreads, 0,
+                      s>>>(
+      static_cast<const uint32_t*>(pts), static_cast<const int*>(idx),
+      static_cast<const int*>(start), static_cast<const int*>(end),
+      static_cast<const int*>(col), static_cast<uint32_t*>(out), out_n,
+      chunks);
+  return (int)cudaGetLastError();
+}
+
+int zk_bucket_sum(const void* part, long long part_n, const void* start,
+                  const void* end, const void* col, void* out,
+                  long long out_n, long long chunks, void* stream) {
+  if (chunks <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  bucket_sum_kernel<<<blocks_for(chunks, kPointThreads), kPointThreads, 0,
+                      s>>>(
+      static_cast<const uint32_t*>(part), part_n,
+      static_cast<const int*>(start), static_cast<const int*>(end),
+      static_cast<const int*>(col), static_cast<uint32_t*>(out), out_n,
+      chunks);
   return (int)cudaGetLastError();
 }
 

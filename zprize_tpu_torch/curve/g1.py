@@ -1,7 +1,8 @@
 """BLS12-381 G1 in xyzz coordinates over limbed Fq tensors — the port of
-`zprize_tpu/curve/g1.py`, and the wrappers of the two curve kernels:
+`zprize_tpu/curve/g1.py`, and the wrappers of the curve kernels:
 
   K7 `xyzz_add`          (pkern.xyzz_add,          csrc/kernels.cu)
+  K7 `xyzz_add_pairs`    K7 over one tree level: adjacent column pairs
   K8 `xyzz_add_mixed`    (pkern.xyzz_add_mixed,    csrc/kernels.cu)
   K9 `xyzz_add_affine2`  (pkern.xyzz_add_affine2,  csrc/kernels.cu)
 
@@ -9,7 +10,18 @@ A point batch is ONE stacked int32 tensor (4L, *batch) = X, Y, ZZ, ZZZ
 (L = 24 rows each, Montgomery form), x = X/ZZ, y = Y/ZZZ; the identity has
 ZZ == 0. Affine points are (x, y) pairs of (L, *batch) tensors with (0, 0)
 for the identity (0 is not an x on y^2 = x^3 + 4). The stacked layout is
-what the kernels read, so no call concatenates coordinates.
+what the kernels read, so no call concatenates coordinates; a tree level
+reads its pairs in place, so no strided half is copied.
+
+The MSM gathers affine points from a point-major copy instead
+(`pack_affine`: per point x then y as 12 packed 32-bit words, 96 B), so
+one gathered point is six 16-byte reads, not 48 scattered 4-byte ones.
+
+The device code (csrc/field.cuh) keeps one point and a few temporaries in
+registers and reads the other operand's coordinates as it needs them; each
+curve kernel is bound by the card's 32-bit integer multiply-add rate
+(12M + 2S = 14 Fq products of 588 multiply-adds for K7), not by its
+bytes.
 """
 
 import torch
@@ -57,6 +69,17 @@ def xyzz_add_mixed_plain(p, qx, qy):
     q = limbmath.affine_lift(FQ.P, qx.to(torch.int64), qy.to(torch.int64))
     r = limbmath.xyzz_add(FQ.P, _split(p.to(torch.int64)), q)
     return _stack(r).to(torch.int32)
+
+
+def xyzz_add_pairs_plain(p):
+    """Plain version of the tree-level K7 on (4L, R, m): (4L, R, ceil(m/2))
+    with out[:, r, i] = p[:, r, 2i] + p[:, r, 2i+1], an odd tail kept."""
+    R, m = p.shape[1], p.shape[2]
+    h = m // 2
+    s = xyzz_add_plain(p[:, :, 0:2 * h:2].reshape(4 * L, -1),
+                       p[:, :, 1:2 * h:2].reshape(4 * L, -1))
+    s = s.reshape(4 * L, R, h)
+    return torch.cat([s, p[:, :, 2 * h:]], dim=2) if m % 2 else s
 
 
 def xyzz_add_affine2_plain(px, py, qx, qy):
@@ -132,6 +155,27 @@ def xyzz_add_affine2(px, py, qx, qy):
     return out.reshape((4 * L,) + tuple(batch))
 
 
+def xyzz_add_pairs(p):
+    """K7 over one tree level along the LAST batch axis: (4L, *batch, m) ->
+    (4L, *batch, ceil(m/2)), out[..., i] = p[..., 2i] + p[..., 2i+1], the
+    odd tail p[..., m-1] kept. The pairs are read in place."""
+    m = p.shape[-1]
+    h = (m + 1) // 2
+    a = p.reshape(4 * L, -1, m).contiguous()
+    rows = a.shape[1]
+    if not kernels.use_kernel(a):
+        out = xyzz_add_pairs_plain(a)
+    else:
+        kernels.check_operand(a.reshape(4 * L, -1), 4 * L, a.device)
+        out = torch.empty((4 * L, rows, h), dtype=torch.int32,
+                          device=a.device)
+        rc = kernels.load_library().zk_xyzz_add_pairs(
+            a.data_ptr(), out.data_ptr(), rows, m, kernels.stream())
+        kernels.check(rc, "xyzz_add_pairs")
+        kernels.count("xyzz_add_pairs")
+    return out.reshape(p.shape[:-1] + (h,))
+
+
 def xyzz_double(p):
     """2P through K7 (its P == Q case is dbl-2008-s-1)."""
     return xyzz_add(p, p)
@@ -142,11 +186,11 @@ def xyzz_neg(p):
 
 
 def xyzz_tree_sum(p):
-    """Sum along the LAST batch axis by a pairwise halving tree."""
+    """Sum along the LAST batch axis by a pairwise halving tree (the
+    tree-level K7; an odd tail rides up a level unchanged, as its sum with
+    the identity would)."""
     while p.shape[-1] > 1:
-        if p.shape[-1] % 2:
-            p = torch.cat([p, torch.zeros_like(p[..., :1])], dim=-1)
-        p = xyzz_add(p[..., 0::2], p[..., 1::2])
+        p = xyzz_add_pairs(p)
     return p[..., 0]
 
 
@@ -182,6 +226,25 @@ def xyzz_to_affine_host(p):
             out.append((x * pow(zz, -1, Q_MOD) % Q_MOD,
                         y * pow(zzz, -1, Q_MOD) % Q_MOD))
     return out
+
+
+def pack_affine(x, y):
+    """Affine (L, n) limb tensors -> (n, 24) int32, per point x then y as
+    12 little-endian 32-bit words each (two 16-bit limbs a word)."""
+    def words(a):
+        a = a.to(torch.int64)
+        w = a[0::2] | (a[1::2] << 16)                   # (12, n), < 2^32
+        return w - ((w >> 31) << 32)                    # as int32 bits
+    return torch.cat([words(x), words(y)], dim=0).t().to(
+        torch.int32).contiguous()
+
+
+def unpack_affine(rows):
+    """(k, 24) packed points -> affine (x, y), each (L, k) limbs."""
+    w = rows.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=2).reshape(-1, 2 * L)
+    limbs = limbs.t().to(torch.int32)
+    return limbs[:L].contiguous(), limbs[L:].contiguous()
 
 
 def affine_points_to_device(points, device):

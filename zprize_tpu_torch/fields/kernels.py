@@ -17,7 +17,8 @@ Every wrapper takes limbs-leading int32 tensors of 16-bit limbs:
   * on a CPU tensor it runs the plain version (`limbmath.py`).
 
 The wrappers here are K1-K6 of `zprize_tpu/fields/pkern.py`; the curve
-kernels K7-K9 are wrapped in `curve/g1.py`.
+kernels K7-K9 and K7's tree level are wrapped in `curve/g1.py`, the MSM
+bucket kernels in `ops/msm.py`.
 """
 
 import contextlib
@@ -42,7 +43,8 @@ LOCK_TIMEOUT_S = 600
 BUILD_TIMEOUT_S = 600
 
 KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub", "mul3",
-                "xyzz_add", "xyzz_add_mixed", "xyzz_add_affine2")
+                "xyzz_add", "xyzz_add_mixed", "xyzz_add_affine2",
+                "xyzz_add_pairs", "bucket_acc", "bucket_sum")
 # launches of each CUDA kernel since the last reset_counts()
 COUNTS = {k: 0 for k in KERNEL_NAMES}
 
@@ -185,9 +187,13 @@ def load_library():
     h.zk_xyzz_add.argtypes = [P, P, P, LL, P]
     h.zk_xyzz_add_mixed.argtypes = [P, P, P, P, LL, P]
     h.zk_xyzz_add_affine2.argtypes = [P, P, P, P, P, LL, P]
+    h.zk_xyzz_add_pairs.argtypes = [P, P, LL, LL, P]
+    h.zk_bucket_acc.argtypes = [P, P, P, P, P, P, LL, LL, P]
+    h.zk_bucket_sum.argtypes = [P, LL, P, P, P, P, LL, LL, P]
     for name in ("zk_mul", "zk_add", "zk_sub", "zk_mul3", "zk_neg",
                  "zk_butterfly_stage", "zk_xyzz_add", "zk_xyzz_add_mixed",
-                 "zk_xyzz_add_affine2"):
+                 "zk_xyzz_add_affine2", "zk_xyzz_add_pairs", "zk_bucket_acc",
+                 "zk_bucket_sum"):
         getattr(h, name).restype = I
     _LIB = h
     return h

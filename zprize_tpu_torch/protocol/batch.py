@@ -68,7 +68,6 @@ def prove_many(witnesses, dev_pk, dev_srs, base_transcript, cfg=None,
         for d in devs:
             c = copy.copy(cfg)
             c.device = d
-            c.commit_passes = []
             cfgs.append(c)
 
         def run(k):
@@ -82,7 +81,5 @@ def prove_many(witnesses, dev_pk, dev_srs, base_transcript, cfg=None,
         with ThreadPoolExecutor(max_workers=len(devs)) as ex:
             for f in [ex.submit(run, k) for k in range(len(devs))]:
                 f.result()
-        for c in cfgs:
-            cfg.commit_passes += c.commit_passes
     wall = time.time() - t0
     return proofs, wall, len(witnesses) / wall if wall > 0 else float("inf")

@@ -55,7 +55,6 @@ class ProverConfig:
     checks of everything but the MSM).
     msm_window_bits: window of the device MSM (a divisor of 16); None picks
     `msm.auto_window_bits(n)`.
-    commit_passes: every device commit appends its MSM drain pass count.
     log: optional callable; when set, every round ends by pulling one
     element to the host and logs its seconds (an attributable breakdown,
     at the cost of one sync per round)."""
@@ -73,16 +72,18 @@ class ProverConfig:
         self.log = log
         self.msm_backend = msm_backend
         self.msm_window_bits = msm_window_bits
-        self.commit_passes = []
 
 
 class DevSRS:
     """SRS points on the device: (x (L, N), y (L, N), inf (N,)), identity
-    (0, 0); `ref` carries h / beta_h for the verifier (and powers_of_g
-    when built by `from_ref`, which the host MSM backend reads)."""
+    (0, 0), and `packed`, their point-major copy (N, 24) that the MSM's
+    bucket kernel gathers from (`g1.pack_affine`, built once here); `ref`
+    carries h / beta_h for the verifier (and powers_of_g when built by
+    `from_ref`, which the host MSM backend reads)."""
 
     def __init__(self, points, ref):
         self.points = points
+        self.packed = g1.pack_affine(points[0], points[1])
         self.ref = ref
         self.size = points[0].shape[1]
 
@@ -158,21 +159,16 @@ class ProverWitness:
 
 def commit_batch(dev_srs, polys, cfg):
     """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
-    points. Records each device commit's MSM pass count in
-    cfg.commit_passes."""
+    points."""
     n = polys.shape[2]
     if cfg.msm_backend == "host":
         return [ref_kzg.commit(dev_srs.ref, FR.from_mont_host(polys[:, b]))
                 for b in range(polys.shape[1])]
     wb = cfg.msm_window_bits or tmsm.auto_window_bits(n)
-    x = dev_srs.points[0][:, :n].contiguous()
-    y = dev_srs.points[1][:, :n].contiguous()
     raw = mont.from_mont(FR, polys)
     out = []
     for b in range(polys.shape[1]):
-        stats = {}
-        wpts = tmsm.msm_windows(x, y, raw[:, b], wb, stats=stats)
-        cfg.commit_passes.append(stats["passes"])
+        wpts = tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
         out.append(tmsm.fold_windows_host(g1.xyzz_to_affine_host(wpts), wb))
     return out
 
