@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (`zprize_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--height H]
-                          [--phases probe,build,kernels,msm,circuit,h6,main]
+                          [--phases probe,build,kernels,msm,entry,circuit,
+                                    h6,main]
 
 Phases, in order; each prints a JSON line before it starts and one with its
 seconds when it ends:
@@ -20,9 +21,12 @@ seconds when it ends:
            level); then one MSM at the h15 shape (2^22 SRS points, 16-bit
            windows, seeded scalars) with CUDA-event times of its stages
            (sort + bounds, chunk list, bucket kernel, partial levels, fold,
-           host fold), its result held to (sum s_i tau^i) G, and each of the
-           three kernels timed and held to its plain version at the shape
-           that MSM gives it
+           device window fold, copy to the host), the window fold held to
+           the Python-int host fold and the result to (sum s_i tau^i) G,
+           and each of the three kernels timed and held to its plain
+           version at the shape that MSM gives it
+  entry    the entry step (zprize_tpu_torch.entry: 128 Poseidon hashes,
+           then a 2^7 INTT) on the card, held equal to the CPU's
   circuit  a general PLONK circuit with every widget and a 256-row lookup
            table, padded to n = 2^10: spec preprocess on the host, then
            DevSRS.from_ref, DevProverKey.from_ref,
@@ -36,7 +40,10 @@ seconds when it ends:
            preprocess_layout, witness, prove_torch, verify; then
            prove_many over that witness and one with other leaves. The
            kernel launches of each path are counted, and every kernel of a
-           path must have run in it
+           path must have run in it. Then, on the same set-up, one prove
+           timed round by round (tools.timeline) and one with its memory
+           peak attributed (tools.mem_attr); both examples at small sizes
+           (each must verify); the micro-benchmarks (tools.micro)
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. The last line is the result object.
@@ -96,6 +103,10 @@ CHECK_N = (1 << 16) + 37
 # which the circuit's n = 2^10 does not promise
 OFF_PATH = ("mul3", "xyzz_add_mixed")
 NOT_LAUNCHED = {
+    # the entry step runs the Poseidon rounds (mul, add) and an INTT
+    # (mul_add_sub, mul)
+    "entry": OFF_PATH + ("sub", "neg", "xyzz_add", "xyzz_add_affine2",
+                         "xyzz_add_pairs", "bucket_acc", "bucket_sum"),
     "main": OFF_PATH,
     "prove_many": OFF_PATH + ("xyzz_add_affine2",),
     "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
@@ -359,24 +370,6 @@ def _mixed_operands(P, aff):
     return P.contiguous(), qx.contiguous(), qy.contiguous()
 
 
-def _time(fn, reps):
-    """(ms per call over `reps` calls, the output of a first call). A
-    second untimed call lets the allocator cache the block that the timed
-    calls reuse while the first output is held."""
-    import torch
-    out = fn()
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps, out
-
-
 def _tile(t, n):
     reps = -(-n // t.shape[1])
     return t.repeat(1, reps)[:, :n].contiguous()
@@ -409,8 +402,9 @@ def compare(name, got, want):
 def record(name, replaces, fn, bytes_moved, ops, errs, reps=10, **extra):
     """Time `fn` (one kernel launch) and its plain version, hold the two
     outputs equal, and build the kernel's entry of the `kernels` line."""
-    ms, got = _time(fn, reps)
-    plain_ms, want = _time(_plain(fn), 1)
+    from zprize_tpu_torch.tools.cudatime import time_ms
+    ms, got = time_ms(fn, reps)
+    plain_ms, want = time_ms(_plain(fn), 1)
     errs.append(compare(f"{name}/timed", got, want))
     del got, want
     t_bytes = bytes_moved / HBM_BYTES_S * 1e3
@@ -565,67 +559,17 @@ def _levels(pts, idx, starts, lens):
     return levels
 
 
-def _scalars(n, seed):
-    """Seeded canonical scalars as raw (16, n) int32 limbs (numpy)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    raw = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
-    raw[15] = rng.integers(0, 0x73ed, size=n)          # below r
-    return raw.astype(np.int32)
-
-
-def _stage(times, name, fn):
-    """Run one MSM stage between two CUDA events, then synchronize."""
-    import torch
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    torch.cuda.synchronize()
-    times.setdefault(name, []).append(a.elapsed_time(b))
-    return out
-
-
-def msm_stages(pts, raw, wb, times):
-    """One MSM through its stages (msm.msm_windows + the host fold), each
-    timed; returns (affine result, intermediates)."""
-    from zprize_tpu_torch.curve import g1
-    from zprize_tpu_torch.fields.mont import FQ
-    from zprize_tpu_torch.ops import msm
-    L = FQ.L
-
-    def sort():
-        d = msm.limbs16_to_digits(raw, wb)
-        return d.shape[0], msm.sort_members(d, wb)
-    W, (idx, starts, lens) = _stage(times, "sort_bounds", sort)
-    nb = starts.shape[0]
-    chunks = _stage(times, "chunk_list",
-                    lambda: msm.chunk_list(starts, lens))
-    part = _stage(times, "bucket_kernel",
-                  lambda: msm.first_level(pts, idx, chunks, nb))
-    S = _stage(times, "partial_levels",
-               lambda: msm.sum_levels(part, chunks, nb))
-    wp = _stage(times, "fold", lambda: msm.weighted_bucket_fold(
-        S.reshape(4 * L, W, 1 << wb)))
-    res = _stage(times, "host_fold", lambda: msm.fold_windows_host(
-        g1.xyzz_to_affine_host(wp), wb))
-    return res, {"idx": idx, "starts": starts, "lens": lens,
-                 "chunks": chunks, "part": part, "S": S, "W": W}
-
-
 def check_msm():
     """Returns {name: record} for bucket_acc, bucket_sum and
     xyzz_add_pairs; raises on a mismatch or a wrong MSM."""
     import numpy as np
     import torch
     from zprize_tpu_torch.curve import g1
-    from zprize_tpu_torch.fields.limb import limbs_to_ints
     from zprize_tpu_torch.fields.mont import FQ
     from zprize_tpu_torch.ops import msm
-    from zprize_tpu_torch.params import R_MOD
     from zprize_tpu_torch.protocol.srs import device_srs
-    from zprize_tpu_torch.ref.curve import G1_GEN, g1_mul
+    from zprize_tpu_torch.tools.cudatime import median, stage
+    from zprize_tpu_torch.tools.micro import msm_stages, scalars, sum_s_tau_g
     L = FQ.L
     rng = np.random.default_rng(20261018)
 
@@ -653,16 +597,20 @@ def check_msm():
     (x, y, _), _, tau = device_srs(n - 1, device="cuda")
     pts = g1.pack_affine(x, y)
     del x, y
-    raw = torch.from_numpy(_scalars(n, MSM_SEED)).to("cuda")
-    times = {}
+    raw = torch.from_numpy(scalars(n, MSM_SEED)).to("cuda")
+    times, oracle = {}, {}
     msm_stages(pts, raw, wb, {})                   # warm-up
     for _ in range(3):
         res, mid = msm_stages(pts, raw, wb, times)
+        # the device window fold against its oracle, the Python-int fold
+        # of the same window points
+        host = stage(oracle, "host_fold", lambda: msm.fold_windows_host(
+            g1.xyzz_to_affine_host(mid["wp"]), wb))
+        if res != host:
+            raise AssertionError("h15-shape MSM: device window fold != "
+                                 "host fold")
     # (sum_i s_i tau^i) G is the MSM over the SRS powers tau^i G
-    e = 0
-    for s in reversed(limbs_to_ints(raw.cpu().numpy().astype(np.uint32).T)):
-        e = (e * tau + s) % R_MOD
-    if res != g1_mul(G1_GEN, e):
+    if res != sum_s_tau_g(raw, tau):
         raise AssertionError("h15-shape MSM != (sum s_i tau^i) G")
 
     c, idx, nb = mid["chunks"], mid["idx"], mid["starts"].shape[0]
@@ -709,16 +657,42 @@ def check_msm():
         lambda: g1.xyzz_add_pairs(G),
         G.numel() * 4 * 3 // 2, G.shape[1] * (B1 // 2) * K7_OPS, [0],
         reps=10, rows=int(G.shape[1]), m=B1)
-    stage_ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    stage_ms = {k: median(v) for k, v in times.items()}
     emit({"msm": {"points": n, "window_bits": wb, "windows": W,
                   "buckets": nb, "chunks": chunks,
                   "levels": levels,
                   "stage_ms": stage_ms,
                   "stage_ms_runs": times,
                   "total_ms": sum(stage_ms.values()),
+                  "host_fold_ms": median(oracle["host_fold"]),
+                  "window_fold_equals_host_fold": True,
                   "result_equals_sum_s_tau_G": True}})
     torch.cuda.empty_cache()
     return recs
+
+
+# ---------------------------------------------------------------------------
+# the entry step
+# ---------------------------------------------------------------------------
+
+def check_entry(counts):
+    """`entry()` on the card held equal to `entry(device="cpu")` (the plain
+    versions) on the same 128 seeded pairs; `counts` receives the kernel
+    launches of the card's step alone."""
+    import torch
+    from zprize_tpu_torch.entry import entry
+    from zprize_tpu_torch.fields import kernels
+    step, (left, right) = entry()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    out = step(left, right)
+    torch.cuda.synchronize()
+    counts.update(kernels.COUNTS)
+    cpu_step, (cl, cr) = entry(device="cpu")
+    if not (torch.equal(left.cpu(), cl) and torch.equal(right.cpu(), cr)):
+        raise AssertionError("entry: the card's inputs differ from the CPU's")
+    err = compare("entry", out.cpu(), cpu_step(cl, cr))
+    return {"shape": list(out.shape), "equal": True, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -783,16 +757,6 @@ def build_circuit():
     return cs
 
 
-def _host_srs(points, lite):
-    """Device SRS points -> the spec's SRS (Python-int points)."""
-    from zprize_tpu_torch.fields.mont import FQ
-    from zprize_tpu_torch.ref.kzg import SRS
-    x, y, inf = points
-    xs, ys = FQ.from_mont_host(x), FQ.from_mont_host(y)
-    pts = [None if i else (a, b) for a, b, i in zip(xs, ys, inf.tolist())]
-    return SRS(pts, lite.h, lite.beta_h)
-
-
 def check_circuit(device="cuda", counts=None):
     """Path (a): a general circuit from the composer to a verified proof,
     proved four ways that must give equal bytes. `counts`, if given,
@@ -803,7 +767,7 @@ def check_circuit(device="cuda", counts=None):
     from zprize_tpu_torch.protocol import prover_torch as pt
     from zprize_tpu_torch.protocol import keys_io
     from zprize_tpu_torch.protocol.serde import serialize_proof
-    from zprize_tpu_torch.protocol.srs import device_srs
+    from zprize_tpu_torch.protocol.srs import device_srs, host_srs
     from zprize_tpu_torch.protocol.transcript_protocol import \
         TranscriptProtocol
     from zprize_tpu_torch.ref import prover as rp
@@ -827,7 +791,7 @@ def check_circuit(device="cuda", counts=None):
         raise AssertionError(f"circuit pads to {n}, not 2^{CIRCUIT_LOG_N}")
     pts, lite, _ = timed("device_srs", lambda: device_srs(n + 8,
                                                           device=device))
-    srs = _host_srs(pts, lite)
+    srs = host_srs(pts, lite)
     label = b"circuit"
     tr = TranscriptProtocol(label)
     pk, vk = timed("preprocess", lambda: rp.preprocess(cs, srs, tr))
@@ -886,12 +850,6 @@ def check_circuit(device="cuda", counts=None):
 # Merkle gen_proof
 # ---------------------------------------------------------------------------
 
-def _leaves(m, seed):
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    return [int.from_bytes(rng.bytes(31), "little") for _ in range(m)]
-
-
 def _profile_prove(prove, height):
     """One more prove under torch.profiler: device time by kernel, and the
     device's busy share of the wall time (union of kernel intervals); the
@@ -938,13 +896,16 @@ def _profile_prove(prove, height):
 
 
 def gen_proof(height, impls=("kernel",), timed=False, profile=False,
-              on_done=None, many_counts=None):
+              on_done=None, many_counts=None, tools=False):
     """SRS -> layout -> preprocess -> witness -> prove (once per impl) ->
     verify. Returns (proof bytes per impl, phase seconds).
-    timed: log preprocess phases and prove rounds; on_done: called right
-    after the verify; many_counts: a dict, to run prove_many after that
-    (see _prove_many) and receive its kernel launches; profile: one more
-    prove under torch.profiler."""
+    timed: log preprocess phases and prove rounds; on_done: called with
+    "main" right after the verify and with "prove_many" right after
+    prove_many; many_counts: a dict, to run prove_many after that
+    (see _prove_many) and receive its kernel launches; tools: then time
+    one more prove round by round (tools.timeline) and attribute one more
+    prove's memory peak (tools.mem_attr); profile: one more prove under
+    torch.profiler."""
     import torch
     from zprize_tpu_torch.params import R_MOD
     from zprize_tpu_torch.fields.mont import FR
@@ -957,6 +918,7 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
         TranscriptProtocol
     from zprize_tpu_torch.ref.prover import seed_transcript
     from zprize_tpu_torch.ref.verifier import verify
+    from zprize_tpu_torch.tools.merkle_setup import seeded_leaves
 
     secs = {}
 
@@ -978,7 +940,7 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
     pk, vk = phase("preprocess", lambda: preprocess_layout(
         lay, dev_srs, tr, cfg,
         log=lambda s: emit({"log": s}) if timed else None))
-    leaves = FR.tensor(_leaves(lay.m_leaves, height), "cuda")
+    leaves = FR.tensor(seeded_leaves(lay.m_leaves, height), "cuda")
     wires, root, _ = phase("witness", lambda: lay.witness(leaves))
     pi = {lay.root_gate_pos: (-root) % R_MOD}
     proofs = {}
@@ -999,10 +961,22 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
             raise AssertionError(f"h{height} {impl} proof does not verify")
         emit({"verify": "PASS", "height": height, "impl": impl})
     if on_done:
-        on_done()
+        on_done("main")
     if many_counts is not None:
         _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, proofs["kernel"],
                     many_counts)
+        if on_done:
+            on_done("prove_many")
+    if tools:
+        from zprize_tpu_torch.tools import mem_attr, timeline
+        from zprize_tpu_torch.tools.merkle_setup import MerkleSetup
+        setup = MerkleSetup(lay, dev_srs, lite, pk, vk,
+                            pt.ProverWitness(wires, pi))
+        with Phase(f"h{height}.timeline"):
+            emit({"timeline": timeline.measure(setup)})
+        with Phase(f"h{height}.mem_attr"):
+            emit({"mem_attr": mem_attr.measure(setup)})
+        del setup
     if profile:
         t = TranscriptProtocol(b"Merkle tree")
         seed_transcript(t, vk)
@@ -1030,9 +1004,10 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
     from zprize_tpu_torch.ref.prover import seed_transcript
     from zprize_tpu_torch.ref.verifier import verify
 
+    from zprize_tpu_torch.tools.merkle_setup import seeded_leaves
     h = lay.height
     with Phase(f"h{h}.prove_many"):
-        leaves = FR.tensor(_leaves(lay.m_leaves, h + 1000), "cuda")
+        leaves = FR.tensor(seeded_leaves(lay.m_leaves, h + 1000), "cuda")
         wires2, root2, _ = lay.witness(leaves)
         pis = [pi, {lay.root_gate_pos: (-root2) % R_MOD}]
         witnesses = [pt.ProverWitness(wires, pis[0]),
@@ -1069,9 +1044,11 @@ def check_h6():
 
 
 def main_path(height, profile=False):
-    """The main path at `height`, then prove_many; returns the kernel
-    launch counts of each, {"main": ..., "prove_many": ...}, of exactly
-    that run (a profiled extra prove comes after both counts)."""
+    """The main path at `height`, then prove_many, the timeline and the
+    memory attribution of one more prove each, both examples and the
+    micro-benchmarks; returns the kernel launch counts of the first two,
+    {"main": ..., "prove_many": ...}, of exactly that run (the runs after
+    them come after both counts)."""
     import torch
     from zprize_tpu_torch.fields import kernels
     torch.cuda.reset_peak_memory_stats()
@@ -1079,23 +1056,38 @@ def main_path(height, profile=False):
     counts = {"main": {}, "prove_many": {}}
     peak = {}
 
-    def on_done():
-        counts["main"].update(kernels.COUNTS)
-        peak["main"] = torch.cuda.max_memory_allocated()
+    def on_done(path):
+        if path == "main":
+            counts["main"].update(kernels.COUNTS)
+        peak[path] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
 
     with Phase(f"main_h{height}"):
         _, secs = gen_proof(
             height, timed=True, profile=profile, on_done=on_done,
-            many_counts=counts["prove_many"])
+            many_counts=counts["prove_many"], tools=True)
     emit({"main": {"height": height, "n": 1 << (
         (4 + 193 * ((1 << (height - 1)) - 1) + 1 - 1).bit_length()),
         "seconds": secs,
         "max_memory_allocated": peak["main"],
-        "max_memory_allocated_prove_many":
-            torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_prove_many": peak["prove_many"],
         "launches": counts["main"]}})
+    run_examples_and_micro()
     return counts
+
+
+def run_examples_and_micro():
+    """Both examples at small sizes on the card (each must verify), then
+    the micro-benchmarks."""
+    from zprize_tpu_torch.examples import merkle_tree, simple_circuit
+    from zprize_tpu_torch.tools import micro
+    with Phase("example.simple_circuit"):
+        emit({"example": "simple_circuit",
+              **simple_circuit.main("cuda")})
+    with Phase("example.merkle_tree"):
+        emit({"example": "merkle_tree", **merkle_tree.main(3, "cuda")})
+    with Phase("micro"):
+        emit({"micro": micro.run()})
 
 
 def _require_launched(path, counts):
@@ -1192,7 +1184,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--height", type=int, default=MAIN_HEIGHT)
     ap.add_argument("--phases",
-                    default="probe,build,kernels,msm,circuit,h6,main")
+                    default="probe,build,kernels,msm,entry,circuit,h6,"
+                            "main")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more main-path prove")
     args = ap.parse_args()
@@ -1206,12 +1199,9 @@ def main():
         fail("torch.cuda.is_available() is false")
 
     with Phase("probe"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()
-        card = smi[0] if smi else "nvidia-smi gave no answer"
         from zprize_tpu_torch.fields import kernels
+        from zprize_tpu_torch.tools.cudatime import card as query_card
+        card = query_card()
         nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
                               capture_output=True, text=True,
                               timeout=60).stdout.strip().splitlines()
@@ -1243,6 +1233,12 @@ def main():
         with Phase("msm"):
             results.update(check_msm())
     path_counts = {}
+    if "entry" in phases:
+        with Phase("entry"):
+            counts = {}
+            emit({"entry": check_entry(counts), "launches": counts})
+        _require_launched("entry", counts)
+        path_counts["entry"] = counts
     if "circuit" in phases:
         with Phase("circuit"):
             counts = {}

@@ -6,7 +6,10 @@ chunked bucket MSM (plain versions of its kernels) vs the oracle
 `zprize_tpu.ref.curve.g1_msm` that `zprize_tpu.ops.msm` is pinned to (its
 full window grid takes minutes to compile on a CPU) on random, skewed,
 equal and zero scalars and special points, and its digit helpers vs
-`zprize_tpu.ops.msm` directly. Exact comparisons."""
+`zprize_tpu.ops.msm` directly; the device window fold vs the Python-int
+host fold and `prover_tpu._fold_windows`, `commit_batch` vs the host MSM,
+and the batched-affine additions vs `zprize_tpu.curve.g1`. Exact
+comparisons."""
 
 import random
 
@@ -54,9 +57,13 @@ def test_xyzz_add_affine2_matches_jax_and_oracle():
     assert g1.xyzz_to_affine_host(got) == [g1_add(a, b) for a, b in pairs]
 
 
-def test_xyzz_add_and_double_match_jax():
+@pytest.mark.parametrize("plain", ["ints", "limbs"])
+def test_xyzz_add_and_double_match_jax(monkeypatch, plain):
     """K7 on xyzz operands with non-trivial Z, including P == Q written
-    with two different coordinate sets, P == -Q and the identity."""
+    with two different coordinate sets, P == -Q and the identity; its plain
+    version on Python ints (a small batch) and on limb arrays."""
+    if plain == "limbs":
+        monkeypatch.setattr(g1, "INT_BATCH", 0)
     pairs = _pairs()
     ax, ay, _ = g1.affine_points_to_device([a for a, _ in pairs], "cpu")
     bx, by, _ = g1.affine_points_to_device([b for _, b in pairs], "cpu")
@@ -238,3 +245,133 @@ def test_device_srs_matches_spec_setup():
         ref.powers_of_g
     assert not inf.any()
     assert (lite.h, lite.beta_h) == (ref.h, ref.beta_h)
+
+
+def _windows(W, B, rng):
+    """Window points (4L, B, W), LSB window first, and their affine values
+    [b][w]. Columns: random windows; every window the identity; one
+    nonzero window at the top; one at the bottom; P and -P in the top two
+    windows. Each point is (P + R) + (-R), so its ZZ is not 1 and an
+    identity has X, Y != 0."""
+    pool = [g1_mul(G1_GEN, rng.randrange(1, 1 << 30)) for _ in range(4)]
+    cols = [[g1_mul(G1_GEN, rng.randrange(1, 1 << 30)) for _ in range(W)],
+            [None] * W,
+            [None] * (W - 1) + [pool[0]],
+            [pool[1]] + [None] * (W - 1),
+            ([None] * W + [pool[2], g1_neg(pool[2])])[-W:]][:B]
+    flat = [p for col in cols for p in col]
+    x, y, _ = g1.affine_points_to_device(flat, "cpu")
+    rx, ry, _ = g1.affine_points_to_device([pool[3]] * len(flat), "cpu")
+    nx, ny, _ = g1.affine_points_to_device([g1_neg(pool[3])] * len(flat),
+                                           "cpu")
+    p = g1.xyzz_add_mixed(g1.xyzz_add_affine2(x, y, rx, ry), nx, ny)
+    assert g1.xyzz_to_affine_host(p) == flat
+    return p.reshape(4 * FQ.L, len(cols), W), cols
+
+
+@pytest.mark.parametrize("wb, W", [(2, 1), (2, 3), (2, 4), (4, 1), (4, 3),
+                                   (4, 4)])
+def test_fold_windows_matches_host_fold(wb, W):
+    wpts, cols = _windows(W, 5, random.Random(10 * wb + W))
+    got = g1.xyzz_to_affine_host(msm.fold_windows(wpts, wb))
+    assert got == [msm.fold_windows_host(col, wb) for col in cols]
+    assert got[1] is None
+
+
+def test_fold_windows_matches_jax_fold_windows():
+    """Against `prover_tpu._fold_windows` (XLA on the CPU) as points: the
+    two packages double an identity to different coordinates."""
+    from zprize_tpu.protocol import prover_tpu as tp
+    wpts, cols = _windows(3, 2, random.Random(11))
+    j = {k: jnp.asarray(v.numpy().astype(np.uint32))
+         for k, v in zip(COORDS, wpts.split(24))}
+    want = jg1.xyzz_to_affine_host(tp._fold_windows(j, 2))
+    assert g1.xyzz_to_affine_host(msm.fold_windows(wpts, 2)) == want
+    assert want == [msm.fold_windows_host(col, 2) for col in cols]
+
+
+def test_commit_batch_device_fold_matches_host_msm():
+    """Three 2^6 polys (one of them zero) through the device MSM and its
+    window fold, against the spec's Python MSM; `commit` of one poly."""
+    from zprize_tpu.ref.kzg import SRS
+    from zprize_tpu_torch.fields.mont import FR
+    from zprize_tpu_torch.protocol import prover_torch as pt
+    n = 64
+    rng = random.Random(12)
+    srs = SRS.setup(n + 8, tau=0xABC)
+    polys = [[rng.randrange(R_MOD) for _ in range(n)], [0] * n,
+             [rng.randrange(1 << 8) for _ in range(n)]]
+    stack = torch.stack([FR.tensor(p, "cpu") for p in polys], dim=1)
+    dev_srs = pt.DevSRS.from_ref(srs, "cpu")
+    got = pt.commit_batch(dev_srs, stack, pt.ProverConfig(device="cpu"))
+    host = pt.commit_batch(dev_srs, stack, pt.ProverConfig(
+        device="cpu", msm_backend="host"))
+    assert got == host and got[1] is None
+    assert pt.commit(dev_srs, stack[:, 2], pt.ProverConfig(
+        device="cpu", msm_window_bits=4)) == host[2]
+
+
+def _affine_pairs():
+    """The cases of test_msm_jax's affine_add_batched test, then generic
+    pairs."""
+    P, Q = g1_mul(G1_GEN, 5), g1_mul(G1_GEN, 9)
+    rng = random.Random(13)
+    more = [g1_mul(G1_GEN, rng.randrange(1, 1 << 20)) for _ in range(4)]
+    return [(P, Q), (P, P), (P, g1_neg(P)), (None, Q), (P, None),
+            (None, None), (more[0], more[1]), (more[2], more[3])]
+
+
+def _jax_affine(x, y):
+    return (jnp.asarray(x.numpy().astype(np.uint32)),
+            jnp.asarray(y.numpy().astype(np.uint32)))
+
+
+def _host_affine(x, y):
+    X, Y = FQ.from_mont_host(x), FQ.from_mont_host(y)
+    return [None if (a, b) == (0, 0) else (a, b) for a, b in zip(X, Y)]
+
+
+def test_affine_add_batched_matches_jax_and_oracle():
+    pairs = _affine_pairs()
+    ax, ay, _ = g1.affine_points_to_device([a for a, _ in pairs], "cpu")
+    bx, by, _ = g1.affine_points_to_device([b for _, b in pairs], "cpu")
+    rx, ry = g1.affine_add_batched(ax, ay, bx, by)
+    jx, jy = jg1.affine_add_batched(*_jax_affine(ax, ay),
+                                    *_jax_affine(bx, by))
+    assert _eq(rx, jx) and _eq(ry, jy)
+    assert _host_affine(rx, ry) == [g1_add(a, b) for a, b in pairs]
+
+
+def test_affine_tree_sum_matches_jax_and_oracle():
+    """Two rows of 5 points (an odd axis), with the identity, a repeated
+    point and a point with its negation in them."""
+    rng = random.Random(14)
+    pts = [g1_mul(G1_GEN, rng.randrange(1, 1 << 20)) for _ in range(6)]
+    rows = [[pts[0], None, pts[1], pts[1], pts[2]],
+            [pts[3], g1_neg(pts[3]), pts[4], pts[5], None]]
+    x, y, _ = g1.affine_points_to_device(rows[0] + rows[1], "cpu")
+    x, y = x.reshape(FQ.L, 2, 5), y.reshape(FQ.L, 2, 5)
+    sx, sy = g1.affine_tree_sum(x, y)
+    jx, jy = jg1.affine_tree_sum(*_jax_affine(x, y))
+    assert _eq(sx, jx) and _eq(sy, jy)
+    want = []
+    for row in rows:
+        acc = None
+        for p in row:
+            acc = g1_add(acc, p)
+        want.append(acc)
+    assert _host_affine(sx, sy) == want
+
+
+def test_xyzz_zero_index_and_select():
+    x, y, _ = g1.affine_points_to_device(
+        [g1_mul(G1_GEN, k) for k in (3, 4, 5)], "cpu")
+    p = g1.xyzz_from_affine(x, y)
+    z = g1.xyzz_zero((3,), "cpu")
+    assert z.shape == p.shape and g1.is_identity(z).all()
+    idx = torch.tensor([2, 0])
+    assert torch.equal(g1.xyzz_index(p, idx), p[:, [2, 0]])
+    mask = torch.tensor([True, False, True])
+    sel = g1.xyzz_select(mask, p, z)
+    assert g1.xyzz_to_affine_host(sel) == [
+        g1_mul(G1_GEN, 3), None, g1_mul(G1_GEN, 5)]

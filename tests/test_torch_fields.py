@@ -1,7 +1,8 @@
 """The port's field layer (`zprize_tpu_torch.fields`) against the JAX
 package: the plain PyTorch versions of the kernels vs
 `zprize_tpu.fields.mont` (XLA path on the CPU) and vs the Pallas kernels of
-`zprize_tpu.fields.pkern` in interpret mode. Inputs come from a numpy
+`zprize_tpu.fields.pkern` in interpret mode, and the powers, inversions
+and selects built on them vs the JAX ones. Inputs come from a numpy
 seed; every comparison is exact (integer field arithmetic)."""
 
 import numpy as np
@@ -148,3 +149,55 @@ def test_cpu_tensors_take_the_plain_versions():
     assert not kernels.use_kernel(a)
     assert all(v == 0 for v in kernels.COUNTS.values())
 
+
+
+def _eight(C, JC, seed):
+    """Width-8 operands (0 in column 0, p - 1 in column 1) as port tensors
+    and JAX arrays, with their ints."""
+    xs = _ints(C, 12, seed)[4:]
+    xs[0], xs[1] = 0, C.mod - 1
+    a_np = JC.to_mont_host(xs)
+    return xs, torch.from_numpy(a_np.astype(np.int32)), jnp.asarray(a_np)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_mont_pow_fixed_matches_jax(field):
+    C, JC = FIELDS[field]
+    xs, a, ja = _eight(C, JC, 80)
+    e = 0xB5_F00D_1234_5679
+    bits = [e >> i & 1 for i in range(e.bit_length())]
+    got = mont.mont_pow_fixed(C, a, bits)
+    assert _eq(got, jmont.mont_pow_fixed(JC, ja, bits))
+    assert C.from_mont_host(got) == [pow(x, e, C.mod) for x in xs]
+    assert C.inv_exp_bits == JC.inv_exp_bits
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_inv_in_graph_matches_jax(field):
+    """Units only: the device inversion spoils the batch on a zero, as the
+    JAX one does."""
+    C, JC = FIELDS[field]
+    xs, a, ja = _eight(C, JC, 90)
+    a, ja, xs = a[:, 1:], ja[:, 1:], xs[1:]
+    got = mont.inv_in_graph(C, a)
+    assert _eq(got, jmont.inv_in_graph(JC, ja))
+    assert C.from_mont_host(got) == [pow(x, -1, C.mod) for x in xs]
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_inv_select_eq_match_jax(field):
+    C, JC = FIELDS[field]
+    xs, a, ja = _eight(C, JC, 100)
+    ys, b, jb = _eight(C, JC, 101)
+    b[:, 3], jb = a[:, 3], jb.at[:, 3].set(ja[:, 3])
+    got = mont.inv(C, a)
+    assert _eq(got, jmont.inv(JC, ja))
+    assert C.from_mont_host(got) == [pow(x, -1, C.mod) if x else 0
+                                     for x in xs]
+    assert _eq(mont.inv(C, a[:, 2]), jmont.inv(JC, ja[:, 2]))
+    assert _eq(mont.inv(C, a[:, 0]), jmont.inv(JC, ja[:, 0]))
+    mask = mont.eq(a, b)
+    jmask = jmont.eq(ja, jb)
+    assert mask.tolist() == np.asarray(jmask).tolist()
+    assert mask.tolist() == [i in (0, 1, 3) for i in range(8)]
+    assert _eq(mont.select(mask, a, b), jmont.select(jmask, ja, jb))

@@ -141,9 +141,10 @@ def test_copied_spec_modules_match_originals():
     assert port_rp.SIGMA_NAMES == orig_rp.SIGMA_NAMES
     assert port_rp.SEED_ORDER == orig_rp.SEED_ORDER
     # verbatim copies: the spec prover, the gate library, JubJub, the
-    # native combine_split
+    # native combine_split, the Merkle circuit
     for rel in ("ref/prover.py", "circuit/gates_ext.py", "curve/jubjub.py",
-                "circuit/__init__.py", "native/hostops.c"):
+                "circuit/__init__.py", "native/hostops.c",
+                "merkle/circuit.py"):
         with open(os.path.join(ROOT, "zprize_tpu", rel), "rb") as f:
             orig = f.read()
         with open(os.path.join(ROOT, "zprize_tpu_torch", rel), "rb") as f:
@@ -199,6 +200,11 @@ def test_entry_points_raise_without_a_card():
         pt.DevProverKey.from_ref(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.ProverWitness.from_composer(None, 16)
+    from zprize_tpu_torch.entry import entry
+    from zprize_tpu_torch.examples import merkle_tree, simple_circuit
+    for main in (entry, merkle_tree.main, simple_circuit.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main()
 
 
 @pytest.mark.slow

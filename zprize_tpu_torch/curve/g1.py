@@ -24,13 +24,21 @@ curve kernel is bound by the card's 32-bit integer multiply-add rate
 bytes.
 """
 
+import numpy as np
 import torch
 
 from ..params import Q_MOD
+from ..device import resolve
 from ..fields import kernels, limbmath, mont
+from ..fields.limb import ints_to_limbs, limbs_to_ints
 from ..fields.mont import FQ
 
 L = FQ.L
+# K7's plain version runs on Python ints up to this many points: through
+# the limb-array version a small batch costs thousands of tiny tensor
+# operations a call, and the window fold makes ~255 such calls in a row
+INT_BATCH = 256
+_RINV = pow(FQ.R, -1, Q_MOD)
 
 
 def _split(p):
@@ -39,6 +47,22 @@ def _split(p):
 
 def _stack(d):
     return torch.cat([d[k] for k in limbmath.COORDS], dim=0)
+
+
+def xyzz_zero(shape=(), device=None):
+    """The identity (all coordinates 0) as a (4L, *shape) batch."""
+    return torch.zeros((4 * L,) + tuple(shape), dtype=torch.int32,
+                       device=resolve(device))
+
+
+def xyzz_index(p, idx):
+    """Points idx (an index tensor) of the first batch axis."""
+    return p[:, idx]
+
+
+def xyzz_select(mask, p, q):
+    """mask over the batch axes -> p where set, else q."""
+    return mont.select(mask, p, q)
 
 
 def xyzz_from_affine(x, y):
@@ -57,8 +81,65 @@ def is_identity(p):
 # K7 / K8 / K9 and their plain versions
 # ---------------------------------------------------------------------------
 
+def _to_ints(p):
+    """(4L, N) words -> [X, Y, ZZ, ZZZ], each N Montgomery
+    representatives."""
+    a = p.cpu().numpy().astype(np.uint32)
+    return [limbs_to_ints(a[i * L:(i + 1) * L].T) for i in range(4)]
+
+
+def _from_ints(coords, device):
+    a = np.concatenate([ints_to_limbs(c, L).T for c in coords], axis=0)
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+def _mul(a, b):
+    return a * b * _RINV % Q_MOD
+
+
+def _double_int(X, Y, ZZ, ZZZ):
+    """dbl-2008-s-1 on Montgomery representatives, step for step as
+    `limbmath.xyzz_double`."""
+    q = Q_MOD
+    U = 2 * Y % q
+    V = _mul(U, U)
+    W = _mul(U, V)
+    S = _mul(X, V)
+    M = 3 * _mul(X, X) % q
+    X3 = (_mul(M, M) - 2 * S) % q
+    Y3 = (_mul(M, (S - X3) % q) - _mul(W, Y)) % q
+    return X3, Y3, _mul(V, ZZ), _mul(W, ZZZ)
+
+
+def _add_int(p, r):
+    """add-2008-s-1 with `limbmath.xyzz_add`'s selection order on
+    Montgomery representatives: r = O -> p; p = O -> r; P == Q doubles."""
+    (X1, Y1, ZZ1, ZZZ1), (X2, Y2, ZZ2, ZZZ2) = p, r
+    if ZZ2 == 0:
+        return p
+    if ZZ1 == 0:
+        return r
+    q = Q_MOD
+    U1, U2 = _mul(X1, ZZ2), _mul(X2, ZZ1)
+    S1, S2 = _mul(Y1, ZZZ2), _mul(Y2, ZZZ1)
+    Pd, R = (U2 - U1) % q, (S2 - S1) % q
+    if Pd == 0 and R == 0:
+        return _double_int(*p)
+    PP = _mul(Pd, Pd)
+    PPP = _mul(Pd, PP)
+    Qv = _mul(U1, PP)
+    X3 = (_mul(R, R) - PPP - 2 * Qv) % q
+    Y3 = (_mul(R, (Qv - X3) % q) - _mul(S1, PPP)) % q
+    return (X3, Y3, _mul(_mul(ZZ1, ZZ2), PP), _mul(_mul(ZZZ1, ZZZ2), PPP))
+
+
 def xyzz_add_plain(p, q):
-    """Plain version of K7 on stacked (4L, N) tensors."""
+    """Plain version of K7 on stacked (4L, N) tensors (on Python ints up
+    to INT_BATCH points, else on limb arrays: the same words)."""
+    if p.shape[1] <= INT_BATCH:
+        out = [_add_int(a, b) for a, b in zip(zip(*_to_ints(p)),
+                                              zip(*_to_ints(q)))]
+        return _from_ints(list(zip(*out)) or [[]] * 4, p.device)
     r = limbmath.xyzz_add(FQ.P, _split(p.to(torch.int64)),
                           _split(q.to(torch.int64)))
     return _stack(r).to(torch.int32)
@@ -176,8 +257,22 @@ def xyzz_add_pairs(p):
     return out.reshape(p.shape[:-1] + (h,))
 
 
+def xyzz_double_plain(p):
+    """Plain version of K7 on (p, p): dbl-2008-s-1 alone, which is what
+    K7's P == Q case computes; an identity stays as it is."""
+    if p.shape[1] <= INT_BATCH:
+        out = [c if c[2] == 0 else _double_int(*c)
+               for c in zip(*_to_ints(p))]
+        return _from_ints(list(zip(*out)) or [[]] * 4, p.device)
+    d = _stack(limbmath.xyzz_double(FQ.P, _split(p.to(torch.int64))))
+    return torch.where(is_identity(p)[None], p, d.to(torch.int32))
+
+
 def xyzz_double(p):
     """2P through K7 (its P == Q case is dbl-2008-s-1)."""
+    a = p.reshape(4 * L, -1)
+    if not kernels.use_kernel(a):
+        return xyzz_double_plain(a).reshape(p.shape)
     return xyzz_add(p, p)
 
 
@@ -192,6 +287,63 @@ def xyzz_tree_sum(p):
     while p.shape[-1] > 1:
         p = xyzz_add_pairs(p)
     return p[..., 0]
+
+
+def affine_add_batched(ax, ay, bx, by):
+    """Affine + affine -> affine over (L, *batch) with (0, 0) the identity,
+    through one batched inversion on the device (`mont.inv_in_graph`);
+    every special case: either operand the identity, P + P, P + (-P).
+    The degenerate lanes get the denominator 1 before the inversion, since
+    a zero would spoil the whole batch's product."""
+    def mul(a, b):
+        return mont.mont_mul(FQ, a, b)
+
+    def add(a, b):
+        return mont.add(FQ, a, b)
+
+    def sub(a, b):
+        return mont.sub(FQ, a, b)
+
+    inf_a = mont.is_zero(ax) & mont.is_zero(ay)
+    inf_b = mont.is_zero(bx) & mont.is_zero(by)
+    same_x = mont.eq(ax, bx)
+    same_y = mont.eq(ay, by)
+    dbl = same_x & same_y
+    cancel = same_x & ~same_y
+    xx = mul(ax, ax)
+    num = mont.select(dbl, add(add(xx, xx), xx), sub(by, ay))
+    den = mont.select(dbl, add(ay, ay), sub(bx, ax))
+    degenerate = inf_a | inf_b | cancel
+    one = FQ.const("one", ax.device).reshape(
+        (L,) + (1,) * (ax.dim() - 1)).expand_as(ax)
+    lam = mul(num, mont.inv_in_graph(FQ, mont.select(~degenerate, den, one)))
+    rx = sub(sub(mul(lam, lam), ax), bx)
+    ry = sub(mul(lam, sub(ax, rx)), ay)
+    zero = torch.zeros_like(ax)
+    rx = mont.select(cancel, zero, rx)
+    ry = mont.select(cancel, zero, ry)
+    rx = mont.select(inf_b, ax, rx)
+    ry = mont.select(inf_b, ay, ry)
+    rx = mont.select(inf_a, bx, rx)
+    ry = mont.select(inf_a, by, ry)
+    return rx, ry
+
+
+def affine_tree_sum(x, y):
+    """Sum along the LAST batch axis of affine (x, y), (L, *batch, m), by a
+    pairwise halving tree that stays affine (one batched inversion a
+    level; an odd axis is padded with the identity) -> (L, *batch)."""
+    m = x.shape[-1]
+    while m > 1:
+        if m % 2:
+            pad = torch.zeros_like(x[..., :1])
+            x = torch.cat([x, pad], dim=-1)
+            y = torch.cat([y, pad], dim=-1)
+            m += 1
+        x, y = affine_add_batched(x[..., 0::2], y[..., 0::2],
+                                  x[..., 1::2], y[..., 1::2])
+        m //= 2
+    return x[..., 0], y[..., 0]
 
 
 def xyzz_to_affine_device(p):

@@ -8,7 +8,9 @@ alignment) and dispatch through `kernels.py`: the CUDA kernel for a tensor
 on the card, the plain version for one on the CPU.
 
 `batch_inv` does the single final inversion on the host (a 64-byte round
-trip and a Python `pow`), as the JAX package does.
+trip and a Python `pow`), as the JAX package does; `inv_in_graph` inverts
+the total by a Fermat power on the device instead, so the device never
+waits on the host.
 """
 
 import numpy as np
@@ -34,6 +36,8 @@ class FieldCtx:
         self.mod_limbs = int_to_limbs(mod, L)
         self.r2_limbs = int_to_limbs(self.R2, L)
         self.one_mont = int_to_limbs(self.R, L)
+        self.inv_exp_bits = [(mod - 2) >> i & 1
+                             for i in range((mod - 2).bit_length())]
         self.P = LimbParams(mod, L)
         self._dev = {}
 
@@ -157,6 +161,30 @@ def is_zero(a):
     return (a == 0).all(dim=0)
 
 
+def eq(a, b):
+    return (a == b).all(dim=0)
+
+
+def select(mask, a, b):
+    """mask over the batch axes -> a where set, else b (limb-broadcast)."""
+    return torch.where(mask[None], a, b)
+
+
+def mont_pow_fixed(cfg, a, exp_bits_le):
+    """a^e for an exponent known on the host (bits least significant
+    first): square-and-multiply on the multiplication kernel. The bits are
+    host ints, so a product is launched only where a bit is set."""
+    acc = cfg.const("one", a.device).reshape(
+        (cfg.L,) + (1,) * (a.dim() - 1)).expand_as(a)
+    base = a
+    for i, bit in enumerate(exp_bits_le):
+        if bit:
+            acc = mont_mul(cfg, acc, base)
+        if i + 1 < len(exp_bits_le):
+            base = mont_sqr(cfg, base)
+    return acc
+
+
 def _pad_pow2(cfg, flat):
     """Pad (L, n) to the next power of two with Montgomery ones."""
     n = flat.shape[1]
@@ -197,6 +225,15 @@ def inv_apply(cfg, a, inv_total):
     return inv_cur[:, :n].reshape((cfg.L,) + tuple(batch))
 
 
+def inv_in_graph(cfg, a):
+    """Batched inversion of (L, *batch) on the device alone: product tree,
+    one Fermat power of the (L,) total, down-sweep. Elements must be
+    units: a zero gives garbage."""
+    total = prod_tree_total(cfg, a)
+    inv_total = mont_pow_fixed(cfg, total, cfg.inv_exp_bits)
+    return inv_apply(cfg, a, inv_total)
+
+
 def host_inverse(cfg, total):
     """(L,) Montgomery device value -> its inverse as an (L,) tensor
     (0 -> 0); one 2-byte-per-limb round trip and a Python pow."""
@@ -217,3 +254,11 @@ def batch_inv(cfg, a):
     out = inv_apply(cfg, safe, inv_total)
     out = torch.where(is_z[None], torch.zeros_like(out), out)
     return out.reshape((cfg.L,) + tuple(batch))
+
+
+def inv(cfg, a):
+    """Inverse of (L, *batch) or of one (L,) element; zero maps to zero
+    (host round trip for the total, as `batch_inv`)."""
+    if a.dim() == 1:
+        return batch_inv(cfg, a[:, None])[:, 0]
+    return batch_inv(cfg, a)

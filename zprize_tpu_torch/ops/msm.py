@@ -13,9 +13,10 @@ until one point per bucket is left, so a bucket of any size (all n members
 when every scalar is equal) costs log_CHUNK(n) levels, and no slot grid
 is padded for the largest bucket. The weighted sum over buckets is
 `weighted_bucket_fold` over (4L, windows, buckets) in one pass for all
-windows, and the window points go to the host, which folds them with
-Python ints (the reference's `msmcollect.cpp` step, as
-`zprize_tpu.ops.msm.msm_device` does).
+windows, and `fold_windows` folds the window points on the device (a
+Horner fold of K7 doublings and additions, as `prover_tpu._fold_windows`
+does), so one point per MSM goes to the host. `fold_windows_host`, the
+same fold in Python ints, is the oracle of the tests.
 
 Bound: ~n mixed additions per window, each 10 Fq products of 576 32-bit
 multiply-adds, against the card's integer multiply-add rate; the gathers
@@ -292,8 +293,20 @@ def msm_windows(pts, raw_scalar_limbs, window_bits):
     return weighted_bucket_fold(S.reshape(4 * L, W, 1 << window_bits))
 
 
+def fold_windows(wpts, window_bits):
+    """Window points xyzz (4L, ..., W), LSB window first -> (4L, ...):
+    sum_w 2^(window_bits * w) P_w by Horner from the top window, each step
+    `window_bits` doublings and one addition (K7 at the batch width)."""
+    wins = wpts.movedim(-1, 0).contiguous()        # (W, 4L, ...)
+    acc = wins[-1]
+    for w in range(wins.shape[0] - 2, -1, -1):
+        acc = g1.xyzz_add(_double_k(acc, window_bits), wins[w])
+    return acc
+
+
 def fold_windows_host(wins, window_bits):
-    """Host Horner fold of affine window points (LSB first)."""
+    """Host Horner fold of affine window points (LSB first): the oracle of
+    `fold_windows`."""
     acc = None
     for wp in reversed(wins):
         for _ in range(window_bits):
@@ -308,4 +321,4 @@ def msm(pts, raw_scalar_limbs, window_bits=None):
     an affine Python point or None."""
     wb = window_bits or auto_window_bits(raw_scalar_limbs.shape[1])
     wpts = msm_windows(pts, raw_scalar_limbs, wb)
-    return fold_windows_host(g1.xyzz_to_affine_host(wpts), wb)
+    return g1.xyzz_to_affine_host(fold_windows(wpts, wb)[:, None])[0]

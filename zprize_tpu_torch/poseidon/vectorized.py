@@ -6,7 +6,8 @@ intermediate round state over limbs-leading (L, m) tensors.
     s_{r+1} = M . sbox_r(s_r) + k_{r+1}   (k beyond the last round = 0)
 
 Gadget locals per hash = [tag, s_0 (3), ..., s_63 (3)]; the hash is
-s_63[1]. The 63 rounds run as a Python loop of whole-batch field ops.
+s_63[1] (`hash2_batch`). The 63 rounds run as a Python loop of whole-batch
+field ops.
 """
 
 from functools import lru_cache
@@ -80,3 +81,8 @@ def poseidon_states(left, right):
         s = mont.add(FR, acc, next_keys[r][:, None, :])
         states.append(s)
     return torch.stack(states, dim=0)
+
+
+def hash2_batch(left, right):
+    """(L, m) x (L, m) -> (L, m) Poseidon hashes."""
+    return poseidon_states(left, right)[-1][..., 1]

@@ -7,7 +7,8 @@ The quotient round processes the 8n coset domain as 8 sub-cosets of size n
 (`ops/ntt.SubcosetTables`): every selector's evaluations are recomputed per
 sub-coset from coefficient form, so no (L, 8, n) table is kept. The host
 keeps Fiat-Shamir, two 64-byte inversions, the linearisation scalars, the
-MSM window folds and the plookup `combine_split` (native C, `native/`).
+affine conversion of the commitments and the plookup `combine_split`
+(native C, `native/`).
 
 Both lookup branches are here: a key whose q_lookup and table are all zero
 (the Merkle circuit) takes the degenerate shortcut (f = t = h1 = h2 = 0,
@@ -159,18 +160,23 @@ class ProverWitness:
 
 def commit_batch(dev_srs, polys, cfg):
     """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
-    points."""
+    points. The window points of all B polys are folded together on the
+    device, and the B commitments come to the host in one copy."""
     n = polys.shape[2]
     if cfg.msm_backend == "host":
         return [ref_kzg.commit(dev_srs.ref, FR.from_mont_host(polys[:, b]))
                 for b in range(polys.shape[1])]
     wb = cfg.msm_window_bits or tmsm.auto_window_bits(n)
     raw = mont.from_mont(FR, polys)
-    out = []
-    for b in range(polys.shape[1]):
-        wpts = tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
-        out.append(tmsm.fold_windows_host(g1.xyzz_to_affine_host(wpts), wb))
-    return out
+    wpts = torch.stack([tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
+                        for b in range(polys.shape[1])], dim=1)
+    return g1.xyzz_to_affine_host(tmsm.fold_windows(wpts, wb))
+
+
+def commit(dev_srs, poly_mont, cfg):
+    """KZG-commit one (L, n) Montgomery coefficient poly -> a host affine
+    point (or None)."""
+    return commit_batch(dev_srs, poly_mont[:, None, :], cfg)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -79,3 +79,13 @@ def device_srs(max_degree: int, tau: int = None, seed: int = 42,
     lite.h = G2_GEN
     lite.beta_h = g2_mul(G2_GEN, tau)
     return (out_x, out_y, inf), lite, tau
+
+
+def host_srs(points, lite):
+    """`device_srs`'s points and SRS-lite -> the spec's SRS with
+    Python-int points (what `ref.prover.preprocess`, `DevSRS.from_ref` and
+    the host MSM read)."""
+    x, y, inf = points
+    xs, ys = FQ.from_mont_host(x), FQ.from_mont_host(y)
+    pts = [None if i else (a, b) for a, b, i in zip(xs, ys, inf.tolist())]
+    return SRS(pts, lite.h, lite.beta_h)
