@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--height H]
                           [--phases probe,build,kernels,msm,entry,circuit,
-                                    h6,main]
+                                    h6,main,mesh]
 
 Phases, in order; each prints a JSON line before it starts and one with its
 seconds when it ends:
@@ -43,7 +43,20 @@ seconds when it ends:
            path must have run in it. Then, on the same set-up, one prove
            timed round by round (tools.timeline) and one with its memory
            peak attributed (tools.mem_attr); both examples at small sizes
-           (each must verify); the micro-benchmarks (tools.micro)
+           (each must verify); the micro-benchmarks (tools.micro). The
+           mesh phase always runs inside it, on its set-up, after the
+           timeline and memory attribution
+  mesh     the meshed prover (parallel/mesh.py) on one NCCL group of world
+           size 1 on card 0, on the main path's set-up: the four-step NTT
+           and INTT of the five round-1 columns (n1 = n2 = 2^11 at h15)
+           held equal to ops/ntt's radix-2 ones and timed beside them; the
+           sharded MSM window and the meshed commit held to msm.msm; a
+           meshed prove whose bytes must equal the main proof's and
+           verify; then entry.dryrun_multichip(1) on the card. Listed
+           with main it changes nothing (main runs it); listed without
+           main it is a rehearsal of the mesh phase: the main path's
+           set-up, prove and verify, then the mesh phase, and nothing else
+           of main (no prove_many, tools, examples or micro)
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. The last line is the result object.
@@ -110,6 +123,8 @@ NOT_LAUNCHED = {
     "main": OFF_PATH,
     "prove_many": OFF_PATH + ("xyzz_add_affine2",),
     "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
+    # the dry run's device_srs launches xyzz_add_affine2
+    "mesh": OFF_PATH,
 }
 TIME_N = 1 << 22
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -896,13 +911,15 @@ def _profile_prove(prove, height):
 
 
 def gen_proof(height, impls=("kernel",), timed=False, profile=False,
-              on_done=None, many_counts=None, tools=False):
+              on_done=None, many_counts=None, tools=False, mesh_counts=None):
     """SRS -> layout -> preprocess -> witness -> prove (once per impl) ->
     verify. Returns (proof bytes per impl, phase seconds).
     timed: log preprocess phases and prove rounds; on_done: called with
     "main" right after the verify and with "prove_many" right after
     prove_many; many_counts: a dict, to run prove_many after that
-    (see _prove_many) and receive its kernel launches; tools: then time
+    (see _prove_many) and receive its kernel launches; mesh_counts: a
+    dict, to run the mesh phase after those and the tools (see
+    _mesh_phase) and receive its kernel launches; tools: then time
     one more prove round by round (tools.timeline) and attribute one more
     prove's memory peak (tools.mem_attr); profile: one more prove under
     torch.profiler."""
@@ -977,6 +994,9 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
         with Phase(f"h{height}.mem_attr"):
             emit({"mem_attr": mem_attr.measure(setup)})
         del setup
+    if mesh_counts is not None:
+        _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, proofs["kernel"],
+                    secs["prove_kernel"], mesh_counts)
     if profile:
         t = TranscriptProtocol(b"Merkle tree")
         seed_transcript(t, vk)
@@ -1034,6 +1054,149 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
                          "launches": dict(counts)}})
 
 
+MESH_SEED = 20261019
+
+
+def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
+                main_prove_s, counts):
+    """The meshed prover on one NCCL group of world size 1 (card 0), on
+    the main path's set-up: four-step NTT / INTT of the five round-1
+    columns against the radix-2 ones (equal, and timed beside them), the
+    sharded MSM window and the meshed commit against msm.msm, a meshed
+    prove byte-equal to the main proof and verified, and the dry run on
+    the card. `counts` receives the kernel launches of the mesh path
+    alone (one run of each, then the dry run); the radix-2 and msm.msm
+    references and the timing repeats run outside that count."""
+    import tempfile
+    import numpy as np
+    import torch
+    from zprize_tpu_torch.entry import dryrun_multichip
+    from zprize_tpu_torch.fields import kernels, mont
+    from zprize_tpu_torch.fields.mont import FR
+    from zprize_tpu_torch.ops import msm, ntt
+    from zprize_tpu_torch.parallel import mesh as pmesh
+    from zprize_tpu_torch.protocol import prover_torch as pt
+    from zprize_tpu_torch.protocol.serde import serialize_proof
+    from zprize_tpu_torch.protocol.transcript_protocol import \
+        TranscriptProtocol
+    from zprize_tpu_torch.ref.prover import seed_transcript
+    from zprize_tpu_torch.ref.verifier import verify
+    from zprize_tpu_torch.tools.cudatime import time_ms
+
+    h, n = lay.height, lay.n
+    log_n = n.bit_length() - 1
+    L = FR.L
+    with Phase(f"h{h}.mesh"):
+        # the five round-1 columns (wires and the public-input column), as
+        # prove_torch stacks them
+        pi_col = torch.zeros((L, n), dtype=torch.int32, device="cuda")
+        pos = torch.tensor(list(pi), dtype=torch.int64, device="cuda")
+        pi_col[:, pos] = FR.tensor(list(pi.values()), "cuda")
+        evals = torch.stack(list(wires) + [pi_col], dim=1)     # (L, 5, n)
+        plan = ntt.get_plan(log_n, "cuda")
+        radix = {}
+        radix["intt_ms"], coeffs = time_ms(lambda: ntt.intt(plan, evals), 5)
+        radix["ntt_ms"], evals2 = time_ms(lambda: ntt.ntt(plan, coeffs), 5)
+        _same("radix-2 ntt(intt(x))", evals2, evals)
+        del evals2
+        fsp = pmesh.four_step_plan(log_n, "cuda")
+        # rows[i1, i2] = coeffs[i1 + n1*i2]
+        rows = coeffs.reshape(L, 5, fsp.n2, fsp.n1).transpose(-1, -2) \
+            .contiguous()
+        # one window of seeded digits, as wide as the prover's windows at
+        # this n (16 bits at h15); its reference is msm.msm of scalars
+        # equal to those digits
+        wb = msm.auto_window_bits(n)
+        digits = torch.from_numpy(np.random.default_rng(MESH_SEED).integers(
+            0, 1 << wb, n)).to("cuda")
+        raw_d = torch.zeros((16, n), dtype=torch.int32, device="cuda")
+        raw_d[0] = digits.to(torch.int32)
+        window_ref = msm.msm(dev_srs.packed, raw_d, wb)
+        wire_polys = coeffs[:, :4]
+        raw_w = mont.from_mont(FR, wire_polys)
+        commit_ref = [msm.msm(dev_srs.packed, raw_w[:, b], wb)
+                      for b in range(4)]
+        torch.cuda.synchronize()
+
+        rdzv = tempfile.mkdtemp(prefix="zk-mesh-")
+        mesh = pmesh.make_mesh("cuda", init_method=f"file://{rdzv}/r",
+                               rank=0, world_size=1)
+        try:
+            four = {}
+            four["ntt_ms"], R = time_ms(
+                lambda: pmesh.four_step_ntt(fsp, mesh, rows), 5)
+            _same("four-step ntt", R.reshape(L, 5, n), evals)
+            four["intt_ms"], co = time_ms(
+                lambda: pmesh.four_step_intt_natural(fsp, mesh, evals), 5)
+            _same("four-step intt", co, coeffs)
+            del R, co, rows
+            torch.cuda.synchronize()
+
+            # the mesh path, counted: each piece once, then the dry run
+            kernels.reset_counts()
+            pmesh.four_step_ntt(fsp, mesh, coeffs.reshape(
+                L, 5, fsp.n2, fsp.n1).transpose(-1, -2))
+            pmesh.four_step_intt_natural(fsp, mesh, evals)
+            x, y, _ = dev_srs.points
+            part = pmesh.sharded_msm_window_partials(
+                mesh, x[:, :n].contiguous(), y[:, :n].contiguous(), digits,
+                wb)
+            if _affine(part) != window_ref:
+                raise AssertionError("sharded MSM window != msm.msm")
+            t0 = time.time()
+            commits = pt.commit_batch(dev_srs, wire_polys,
+                                      pt.ProverConfig(mesh=mesh))
+            commit_s = time.time() - t0
+            if commits != commit_ref:
+                raise AssertionError("meshed commit != msm.msm")
+            del evals, coeffs, wire_polys, raw_w, raw_d, pi_col, digits
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = TranscriptProtocol(b"Merkle tree")
+            seed_transcript(t, vk)
+            t0 = time.time()
+            proof = pt.prove_torch(pt.ProverWitness(wires, pi), pk, dev_srs,
+                                   t, pt.ProverConfig(mesh=mesh))
+            torch.cuda.synchronize()
+            prove_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            mesh.close()
+        dry = dryrun_multichip(1)
+        torch.cuda.synchronize()
+        counts.update(kernels.COUNTS)
+        if serialize_proof(proof) != main_bytes:
+            raise AssertionError("meshed h15 proof != the main proof")
+        vtr = TranscriptProtocol(b"Merkle tree")
+        seed_transcript(vtr, vk)
+        if not verify(vk, lite, proof, pi, vtr):
+            raise AssertionError("meshed proof does not verify")
+        torch.cuda.reset_peak_memory_stats()
+    emit({"mesh": {"height": h, "world_size": mesh.size, "backend": "nccl",
+                   "device": str(mesh.device), "n": n, "n1": fsp.n1,
+                   "n2": fsp.n2, "columns": 5, "window_bits": wb,
+                   "four_step_ms": four, "radix2_ms": radix,
+                   "ntt_equal": True, "intt_equal": True,
+                   "msm_window_equal": True, "meshed_commit_equal": True,
+                   "meshed_commit_s": commit_s,
+                   "prove_s": prove_s, "main_prove_s": main_prove_s,
+                   "proof_bytes_equal": True, "verify": "PASS",
+                   "max_memory_allocated": peak, "dryrun": dry,
+                   "launches": dict(counts)}})
+
+
+def _same(name, got, want):
+    import torch
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: differs from the radix-2 transform")
+
+
+def _affine(p):
+    """xyzz (4L,) on the card -> affine Python-int point (or None)."""
+    from zprize_tpu_torch.curve import g1
+    return g1.xyzz_to_affine_host(p[:, None])[0]
+
+
 def check_h6():
     proofs, secs = gen_proof(6, impls=("kernel", "plain"))
     if proofs["kernel"] != proofs["plain"]:
@@ -1043,17 +1206,21 @@ def check_h6():
                  "seconds": secs}})
 
 
-def main_path(height, profile=False):
+def main_path(height, profile=False, mesh_only=False):
     """The main path at `height`, then prove_many, the timeline and the
-    memory attribution of one more prove each, both examples and the
-    micro-benchmarks; returns the kernel launch counts of the first two,
-    {"main": ..., "prove_many": ...}, of exactly that run (the runs after
-    them come after both counts)."""
+    memory attribution of one more prove each, the mesh phase, then both
+    examples and the micro-benchmarks; returns the kernel launch counts of
+    the main path, prove_many and the mesh phase, {"main": ..., "prove_many":
+    ..., "mesh": ...}, each of exactly its own run. mesh_only: the
+    rehearsal of the mesh phase (see the module docstring), without
+    prove_many, the tools, the examples and the micro-benchmarks."""
     import torch
     from zprize_tpu_torch.fields import kernels
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    counts = {"main": {}, "prove_many": {}}
+    counts = {"main": {}, "mesh": {}}
+    if not mesh_only:
+        counts["prove_many"] = {}
     peak = {}
 
     def on_done(path):
@@ -1065,14 +1232,16 @@ def main_path(height, profile=False):
     with Phase(f"main_h{height}"):
         _, secs = gen_proof(
             height, timed=True, profile=profile, on_done=on_done,
-            many_counts=counts["prove_many"], tools=True)
+            many_counts=counts.get("prove_many"), tools=not mesh_only,
+            mesh_counts=counts["mesh"])
     emit({"main": {"height": height, "n": 1 << (
         (4 + 193 * ((1 << (height - 1)) - 1) + 1 - 1).bit_length()),
         "seconds": secs,
         "max_memory_allocated": peak["main"],
-        "max_memory_allocated_prove_many": peak["prove_many"],
+        "max_memory_allocated_prove_many": peak.get("prove_many"),
         "launches": counts["main"]}})
-    run_examples_and_micro()
+    if not mesh_only:
+        run_examples_and_micro()
     return counts
 
 
@@ -1252,11 +1421,13 @@ def main():
     if "h6" in phases:
         with Phase("h6"):
             check_h6()
-    if "main" in phases:
-        counts = main_path(args.height, args.profile)
-        for path in ("main", "prove_many"):
-            _require_launched(path, counts[path])
-        path_counts["prove_many"] = counts["prove_many"]
+    if "main" in phases or "mesh" in phases:
+        counts = main_path(args.height, args.profile,
+                           mesh_only="main" not in phases)
+        for path, c in counts.items():
+            _require_launched(path, c)
+            if path != "main":
+                path_counts[path] = c
         for k, r in results.items():
             r["launches"] = counts["main"][k]
     for k, r in results.items():

@@ -13,14 +13,18 @@ Layout mirrors `zprize_tpu` so each module's counterpart is easy to find:
   ref/, transcript/, circuit/ — host-side executable spec, copied from
                `zprize_tpu` so this package imports neither JAX nor it.
   native/    — the plookup `combine_split` in C (built with gcc).
+  parallel/  — the meshed prover's primitives over `torch.distributed`
+               (NCCL on the card, gloo on the CPU).
   examples/, tools/ — runnable with `python3 -m`: the simple-circuit and
                Merkle examples; the timeline, memory attribution and
-               micro-benchmarks of the card (card only).
+               micro-benchmarks of the card (card only); the
+               multi-process dry run of the meshed primitives (CPU).
 
-Entry points (`entry.entry`, `device_srs`, `MerkleLayout`,
-`preprocess_layout`, `DevProverKey.from_ref`, `DevSRS.from_ref`,
-`ProverWitness.from_composer`, `prove_torch`, `keys_io.load_prover_key`,
-`prove_many`) run on CUDA unless the caller passes device="cpu".
+Entry points (`entry.entry`, `entry.dryrun_multichip`, `device_srs`,
+`parallel.mesh.make_mesh`, `MerkleLayout`, `preprocess_layout`,
+`DevProverKey.from_ref`, `DevSRS.from_ref`, `ProverWitness.from_composer`,
+`prove_torch`, `keys_io.load_prover_key`, `prove_many`) run on CUDA unless
+the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

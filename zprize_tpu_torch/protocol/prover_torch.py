@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..params import R_MOD, K1, K2, K3, JUBJUB_A, JUBJUB_D
-from ..device import resolve
+from ..device import canonical, resolve
 from ..fields import mont, kernels
 from .. import native
 from ..fields.mont import FR
@@ -32,6 +32,7 @@ from ..ops import ntt as tntt
 from ..ops import poly as tpoly
 from ..ops import msm as tmsm
 from ..curve import g1
+from ..parallel import mesh as pmesh
 from .proof import Proof, Evaluations
 from . import widgets_torch as W
 from .widgets import (range_constraint, logic_constraint, fbsm_constraint,
@@ -58,17 +59,34 @@ class ProverConfig:
     `msm.auto_window_bits(n)`.
     log: optional callable; when set, every round ends by pulling one
     element to the host and logs its seconds (an attributable breakdown,
-    at the cost of one sync per round)."""
+    at the cost of one sync per round).
+    mesh: optional `parallel.mesh.Mesh`; every rank of it calls
+    `prove_torch` with the same inputs. The round-1 wire INTT then runs as
+    a four-step transform split over the ranks, and each commitment's MSM
+    is split over them by points (when n splits evenly, the condition of
+    `prover_tpu.commit_batch`). The device is the rank's.
+
+    The JAX prover's `mesh` also shards the key, the witness and the
+    tables along n and lets XLA partition every round program. PyTorch has
+    no such partitioner: here the other round programs run whole on every
+    rank, so the mesh splits work but not memory."""
 
     def __init__(self, device=None, impl="kernel", log=None,
-                 msm_backend="device", msm_window_bits=None):
+                 msm_backend="device", msm_window_bits=None, mesh=None):
         if msm_backend not in ("device", "host"):
             raise ValueError(f"msm_backend must be 'device' or 'host', "
                              f"not {msm_backend!r}")
         if msm_window_bits is not None and msm_window_bits not in \
                 (1, 2, 4, 8, 16):
             raise ValueError("msm_window_bits must divide 16")
+        if mesh is not None:
+            if device is not None and \
+                    canonical(resolve(device)) != canonical(mesh.device):
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.device = resolve(device)
+        self.mesh = mesh
         self.impl = impl
         self.log = log
         self.msm_backend = msm_backend
@@ -161,15 +179,21 @@ class ProverWitness:
 def commit_batch(dev_srs, polys, cfg):
     """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
     points. The window points of all B polys are folded together on the
-    device, and the B commitments come to the host in one copy."""
+    device, and the B commitments come to the host in one copy. With a
+    mesh whose size divides n, each rank computes the window points of its
+    block of points and scalars and the ranks' window points are added
+    before the fold."""
     n = polys.shape[2]
     if cfg.msm_backend == "host":
         return [ref_kzg.commit(dev_srs.ref, FR.from_mont_host(polys[:, b]))
                 for b in range(polys.shape[1])]
     wb = cfg.msm_window_bits or tmsm.auto_window_bits(n)
     raw = mont.from_mont(FR, polys)
-    wpts = torch.stack([tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
-                        for b in range(polys.shape[1])], dim=1)
+    if cfg.mesh is not None and n % cfg.mesh.size == 0:
+        wpts = pmesh.sharded_msm_windows(cfg.mesh, dev_srs.packed, raw, wb)
+    else:
+        wpts = torch.stack([tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
+                            for b in range(polys.shape[1])], dim=1)
     return g1.xyzz_to_affine_host(tmsm.fold_windows(wpts, wb))
 
 
@@ -426,6 +450,17 @@ def _lookup_round(plan, dev_pk, witness, zeta):
             tuple(polys[:, i] for i in range(4)))
 
 
+def _wire_intt(plan, evals, cfg):
+    """Round 1's INTT of the wire and public-input columns: a four-step
+    transform split over the mesh's ranks where its rows and columns
+    split evenly, else the radix-2 one; the same words either way."""
+    if cfg.mesh is not None:
+        fsp = pmesh.four_step_plan(plan.log_n, cfg.device)
+        if fsp.fits(cfg.mesh):
+            return pmesh.four_step_intt_natural(fsp, cfg.mesh, evals)
+    return tntt.intt(plan, evals)
+
+
 def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     if not dev_pk.lookup_degenerate and witness.q_lookup_zero_mask is None:
         raise ValueError("a key with a lookup table needs the witness's "
@@ -453,7 +488,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
         pi_col[:, pos] = vals
     wires5 = torch.stack(list(witness.wires_dev) + [pi_col], dim=1)
     wires = wires5[:, :4]
-    polys5 = tntt.intt(plan, wires5)
+    polys5 = _wire_intt(plan, wires5, cfg)
     wire_polys, pi_poly = polys5[:, :4], polys5[:, 4]
     w_comms = commit_batch(dev_srs, wire_polys, cfg)
     for label, c in zip((b"w_l", b"w_r", b"w_o", b"w_4"), w_comms):
