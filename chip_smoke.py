@@ -46,17 +46,24 @@ seconds when it ends:
            (each must verify); the micro-benchmarks (tools.micro). The
            mesh phase always runs inside it, on its set-up, after the
            timeline and memory attribution
-  mesh     the meshed prover (parallel/mesh.py) on one NCCL group of world
-           size 1 on card 0, on the main path's set-up: the four-step NTT
-           and INTT of the five round-1 columns (n1 = n2 = 2^11 at h15)
-           held equal to ops/ntt's radix-2 ones and timed beside them; the
-           sharded MSM window and the meshed commit held to msm.msm; a
-           meshed prove whose bytes must equal the main proof's and
-           verify; then entry.dryrun_multichip(1) on the card. Listed
-           with main it changes nothing (main runs it); listed without
-           main it is a rehearsal of the mesh phase: the main path's
-           set-up, prove and verify, then the mesh phase, and nothing else
-           of main (no prove_many, tools, examples or micro)
+  mesh     the sharded prover (parallel/mesh.py) on one NCCL group of
+           every card, one rank a card: in this process on the main
+           path's set-up with one card, else one spawned process a card,
+           each building that set-up on its own card. On each rank: the
+           four-step NTT and INTT of the five round-1 columns (n1 = n2 =
+           2^11 at h15) held equal to ops/ntt's radix-2 ones and timed
+           beside them, and the sharded transforms of the rank's columns
+           alone; the sharded MSM window and the meshed commit held to
+           msm.msm; then the rank keeps its columns of the key, witness and
+           SRS, frees the whole and proves: every rank's proof must equal
+           the main proof, and verify; the bytes resident before that
+           prove and its max_memory_allocated are reported per rank. Then
+           entry.dryrun_multichip over the cards, and with several cards
+           prove_many with one replica a card. Listed with main it changes
+           nothing (main runs it); listed without main it is a rehearsal
+           of the mesh phase: the main path's set-up, prove and verify,
+           then the mesh phase, and nothing else of main (no prove_many
+           on one card, tools, examples or micro)
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. The last line is the result object.
@@ -122,8 +129,10 @@ NOT_LAUNCHED = {
                          "xyzz_add_pairs", "bucket_acc", "bucket_sum"),
     "main": OFF_PATH,
     "prove_many": OFF_PATH + ("xyzz_add_affine2",),
+    # one rank's sharded prove: no device_srs either
+    "sharded": OFF_PATH + ("xyzz_add_affine2",),
     "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
-    # the dry run's device_srs launches xyzz_add_affine2
+    # the set-up's or the dry run's device_srs launches xyzz_add_affine2
     "mesh": OFF_PATH,
 }
 TIME_N = 1 << 22
@@ -919,7 +928,8 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
     prove_many; many_counts: a dict, to run prove_many after that
     (see _prove_many) and receive its kernel launches; mesh_counts: a
     dict, to run the mesh phase after those and the tools (see
-    _mesh_phase) and receive its kernel launches; tools: then time
+    _mesh_phase) and receive its kernel launches under "mesh" and
+    "sharded"; tools: then time
     one more prove round by round (tools.timeline) and attribute one more
     prove's memory peak (tools.mem_attr); profile: one more prove under
     torch.profiler."""
@@ -1007,11 +1017,16 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
 
 
 def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
-                counts):
+                counts, devices=(0,)):
     """Path (b): prove_many over the main witness and one with other
     seeded leaves, one proof at a time on device 0's thread; the first
     proof must equal the main proof and both must verify. `counts`
-    receives the kernel launches of the prove_many call alone."""
+    receives the kernel launches of the prove_many call alone. With
+    several `devices` (card numbers) the two witnesses alternate over
+    2 x len(devices) proofs, proof i on card i % len(devices) in that
+    card's thread against its replica of the key and SRS: each proof of
+    the main witness must equal the main proof, each of the other the
+    first of them. Returns the emitted summary."""
     import torch
     from zprize_tpu_torch.params import R_MOD
     from zprize_tpu_torch.fields import kernels
@@ -1032,157 +1047,241 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
         pis = [pi, {lay.root_gate_pos: (-root2) % R_MOD}]
         witnesses = [pt.ProverWitness(wires, pis[0]),
                      pt.ProverWitness(wires2, pis[1])]
+        if len(devices) > 1:
+            witnesses = witnesses * len(devices)
         base = TranscriptProtocol(b"Merkle tree")
         seed_transcript(base, vk)
         torch.cuda.synchronize()
         kernels.reset_counts()
         proofs, wall, pps = prove_many(
             witnesses, pk, dev_srs, base, pt.ProverConfig(device="cuda"),
-            devices=[torch.device("cuda", 0)])
+            devices=[torch.device("cuda", d) for d in devices])
         counts.update(kernels.COUNTS)
-        if serialize_proof(proofs[0]) != first_bytes:
-            raise AssertionError("prove_many's first proof differs from "
-                                 "the main path's proof")
+        got = [serialize_proof(p) for p in proofs]
+        if got[0::2] != [first_bytes] * len(got[0::2]):
+            raise AssertionError("a prove_many proof of the main witness "
+                                 "differs from the main path's proof")
+        if len(set(got[1::2])) != 1:
+            raise AssertionError("prove_many's proofs of one witness "
+                                 "differ")
         for proof, p in zip(proofs, pis):
             vtr = TranscriptProtocol(b"Merkle tree")
             seed_transcript(vtr, vk)
             if not verify(vk, lite, proof, p, vtr):
                 raise AssertionError("a prove_many proof does not verify")
-    emit({"prove_many": {"height": h, "proofs": len(proofs),
-                         "wall_s": wall, "proofs_per_s": pps,
-                         "first_equals_main": True, "verify": "PASS",
-                         "launches": dict(counts)}})
+    out = {"height": h, "proofs": len(proofs), "cards": len(devices),
+           "wall_s": wall, "proofs_per_s": pps, "first_equals_main": True,
+           "verify": "PASS"}
+    emit({"prove_many": dict(out, launches=dict(counts))})
+    return out
 
 
 MESH_SEED = 20261019
 
 
-def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
-                main_prove_s, counts):
-    """The meshed prover on one NCCL group of world size 1 (card 0), on
-    the main path's set-up: four-step NTT / INTT of the five round-1
-    columns against the radix-2 ones (equal, and timed beside them), the
-    sharded MSM window and the meshed commit against msm.msm, a meshed
-    prove byte-equal to the main proof and verified, and the dry run on
-    the card. `counts` receives the kernel launches of the mesh path
-    alone (one run of each, then the dry run); the radix-2 and msm.msm
-    references and the timing repeats run outside that count."""
-    import tempfile
+def _mesh_rank(mesh, height, setup=None):
+    """One rank of the mesh phase, on its card. Builds the main path's
+    seeded set-up there (or takes `setup`, the main path's own, when the
+    world size is 1); on its whole tensors holds the four-step NTT / INTT
+    of the five round-1 columns to the radix-2 ones (and times both, and
+    the sharded transforms alone), the sharded MSM window and the meshed
+    commit to msm.msm; then keeps only its columns of the key, witness and
+    SRS (`shard`), frees the whole, and proves. Returns Python values:
+    the proof bytes, the prove's seconds, the bytes resident before it and
+    its max_memory_allocated, and the launches of the whole rank ("mesh")
+    and of the sharded prove alone ("sharded")."""
+    import gc
     import numpy as np
     import torch
-    from zprize_tpu_torch.entry import dryrun_multichip
     from zprize_tpu_torch.fields import kernels, mont
     from zprize_tpu_torch.fields.mont import FR
     from zprize_tpu_torch.ops import msm, ntt
     from zprize_tpu_torch.parallel import mesh as pmesh
     from zprize_tpu_torch.protocol import prover_torch as pt
     from zprize_tpu_torch.protocol.serde import serialize_proof
+    from zprize_tpu_torch.tools.cudatime import time_ms
+    from zprize_tpu_torch.tools.merkle_setup import MerkleSetup
+
+    kernels.reset_counts()
+    if setup is None:
+        setup = MerkleSetup.build(height, mesh.device)
+    n = setup.lay.n
+    log_n = n.bit_length() - 1
+    L = FR.L
+    dev = mesh.device
+    # the five round-1 columns (wires and the public-input column), as
+    # prove_torch stacks them
+    pi = setup.witness.public_inputs
+    pi_col = torch.zeros((L, n), dtype=torch.int32, device=dev)
+    pi_col[:, torch.tensor(list(pi), dtype=torch.int64, device=dev)] = \
+        FR.tensor(list(pi.values()), dev)
+    evals = torch.stack(list(setup.witness.wires_dev) + [pi_col], dim=1)
+    plan = ntt.get_plan(log_n, dev)
+    radix = {}
+    radix["intt_ms"], coeffs = time_ms(lambda: ntt.intt(plan, evals), 5)
+    radix["ntt_ms"], evals2 = time_ms(lambda: ntt.ntt(plan, coeffs), 5)
+    _same("radix-2 ntt(intt(x))", evals2, evals)
+    del evals2
+    fsp = pmesh.four_step_plan(log_n, dev)
+    # rows[i1, i2] = coeffs[i1 + n1*i2]
+    rows = coeffs.reshape(L, 5, fsp.n2, fsp.n1).transpose(-1, -2) \
+        .contiguous()
+    four = {}
+    four["ntt_ms"], R = time_ms(
+        lambda: pmesh.four_step_ntt(fsp, mesh, rows), 5)
+    _same("four-step ntt", R.reshape(L, 5, n), evals)
+    four["intt_ms"], co = time_ms(
+        lambda: pmesh.four_step_intt_natural(fsp, mesh, evals), 5)
+    _same("four-step intt", co, coeffs)
+    del R, co, rows
+    # the prover's transforms: the rank's columns in and out, no gather
+    cols = pmesh.Columns(log_n, dev, mesh)
+    sharded = {}
+    if cols.sharded:
+        c_part, e_part = cols.coef.take(coeffs), cols.evals.take(evals)
+        sharded["ntt_ms"], got = time_ms(lambda: cols.ntt(c_part), 5)
+        _same("sharded ntt", got, e_part)
+        sharded["intt_ms"], got = time_ms(lambda: cols.intt(e_part), 5)
+        _same("sharded intt", got, c_part)
+        del c_part, e_part, got
+    # one window of seeded digits, as wide as the prover's windows at this
+    # n (16 bits at h15); its reference is msm.msm of scalars equal to
+    # those digits
+    srs = setup.dev_srs
+    wb = msm.auto_window_bits(n)
+    digits = torch.from_numpy(np.random.default_rng(MESH_SEED).integers(
+        0, 1 << wb, n)).to(dev)
+    raw_d = torch.zeros((16, n), dtype=torch.int32, device=dev)
+    raw_d[0] = digits.to(torch.int32)
+    x, y, _ = srs.points
+    part = pmesh.sharded_msm_window_partials(
+        mesh, x[:, :n].contiguous(), y[:, :n].contiguous(), digits, wb)
+    if _affine(part) != msm.msm(srs.packed, raw_d, wb):
+        raise AssertionError("sharded MSM window != msm.msm")
+    wire_polys = coeffs[:, :4]
+    raw_w = mont.from_mont(FR, wire_polys)
+    commit_ref = [msm.msm(srs.packed, raw_w[:, b], wb) for b in range(4)]
+    t0 = time.time()
+    commits = pt.commit_batch(srs, wire_polys, pt.ProverConfig(mesh=mesh))
+    commit_s = time.time() - t0
+    if commits != commit_ref:
+        raise AssertionError("meshed commit != msm.msm")
+    del evals, coeffs, wire_polys, raw_w, raw_d, pi_col, digits, part, x, y
+
+    # the sharded prove: this rank's columns only
+    pk = setup.pk.shard(mesh)
+    dev_srs = srs.shard(mesh, n)
+    witness = setup.witness.shard(mesh)
+    transcript = setup.transcript()
+    del setup, srs, plan
+    ntt.clear_caches()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.COUNTS)
+    kernels.reset_counts()
+    t0 = time.time()
+    proof = pt.prove_torch(witness, pk, dev_srs, transcript,
+                           pt.ProverConfig(mesh=mesh))
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prove_counts = dict(kernels.COUNTS)
+    torch.cuda.reset_peak_memory_stats()
+    return {"rank": mesh.rank, "device": str(dev),
+            "proof": serialize_proof(proof), "prove_s": prove_s,
+            "sharded": cols.sharded, "width": cols.coef.layout.width,
+            "resident_bytes": resident, "peak_bytes": peak,
+            "four_step_ms": four, "radix2_ms": radix,
+            "sharded_ms": sharded, "meshed_commit_s": commit_s,
+            "launches": {"mesh": {k: before[k] + prove_counts[k]
+                                  for k in before},
+                         "sharded": prove_counts}}
+
+
+def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
+                main_prove_s, counts):
+    """The meshed prover over every card of the machine, one NCCL rank a
+    card (`_mesh_rank` on each: spawned processes, each building the
+    set-up on its card, when there are several; in this process on the
+    main path's set-up when there is one). Every rank's sharded h15 proof
+    must equal the main proof and verify; then the dry run over all the
+    cards and, with more than one, prove_many with one replica a card.
+    `counts` receives the launches of rank 0's whole run ("mesh"), of
+    each rank's sharded prove ("sharded", a list) and of the dry run when
+    it runs in this process."""
+    import tempfile
+    import torch
+    from zprize_tpu_torch.entry import dryrun_multichip
+    from zprize_tpu_torch.fields import kernels
+    from zprize_tpu_torch.ops import ntt
+    from zprize_tpu_torch.parallel import mesh as pmesh
+    from zprize_tpu_torch.protocol import prover_torch as pt
+    from zprize_tpu_torch.protocol.serde import deserialize_proof
     from zprize_tpu_torch.protocol.transcript_protocol import \
         TranscriptProtocol
     from zprize_tpu_torch.ref.prover import seed_transcript
     from zprize_tpu_torch.ref.verifier import verify
-    from zprize_tpu_torch.tools.cudatime import time_ms
+    from zprize_tpu_torch.tools.merkle_setup import MerkleSetup
 
     h, n = lay.height, lay.n
-    log_n = n.bit_length() - 1
-    L = FR.L
+    world = torch.cuda.device_count()
     with Phase(f"h{h}.mesh"):
-        # the five round-1 columns (wires and the public-input column), as
-        # prove_torch stacks them
-        pi_col = torch.zeros((L, n), dtype=torch.int32, device="cuda")
-        pos = torch.tensor(list(pi), dtype=torch.int64, device="cuda")
-        pi_col[:, pos] = FR.tensor(list(pi.values()), "cuda")
-        evals = torch.stack(list(wires) + [pi_col], dim=1)     # (L, 5, n)
-        plan = ntt.get_plan(log_n, "cuda")
-        radix = {}
-        radix["intt_ms"], coeffs = time_ms(lambda: ntt.intt(plan, evals), 5)
-        radix["ntt_ms"], evals2 = time_ms(lambda: ntt.ntt(plan, coeffs), 5)
-        _same("radix-2 ntt(intt(x))", evals2, evals)
-        del evals2
-        fsp = pmesh.four_step_plan(log_n, "cuda")
-        # rows[i1, i2] = coeffs[i1 + n1*i2]
-        rows = coeffs.reshape(L, 5, fsp.n2, fsp.n1).transpose(-1, -2) \
-            .contiguous()
-        # one window of seeded digits, as wide as the prover's windows at
-        # this n (16 bits at h15); its reference is msm.msm of scalars
-        # equal to those digits
-        wb = msm.auto_window_bits(n)
-        digits = torch.from_numpy(np.random.default_rng(MESH_SEED).integers(
-            0, 1 << wb, n)).to("cuda")
-        raw_d = torch.zeros((16, n), dtype=torch.int32, device="cuda")
-        raw_d[0] = digits.to(torch.int32)
-        window_ref = msm.msm(dev_srs.packed, raw_d, wb)
-        wire_polys = coeffs[:, :4]
-        raw_w = mont.from_mont(FR, wire_polys)
-        commit_ref = [msm.msm(dev_srs.packed, raw_w[:, b], wb)
-                      for b in range(4)]
         torch.cuda.synchronize()
-
-        rdzv = tempfile.mkdtemp(prefix="zk-mesh-")
-        mesh = pmesh.make_mesh("cuda", init_method=f"file://{rdzv}/r",
-                               rank=0, world_size=1)
-        try:
-            four = {}
-            four["ntt_ms"], R = time_ms(
-                lambda: pmesh.four_step_ntt(fsp, mesh, rows), 5)
-            _same("four-step ntt", R.reshape(L, 5, n), evals)
-            four["intt_ms"], co = time_ms(
-                lambda: pmesh.four_step_intt_natural(fsp, mesh, evals), 5)
-            _same("four-step intt", co, coeffs)
-            del R, co, rows
-            torch.cuda.synchronize()
-
-            # the mesh path, counted: each piece once, then the dry run
-            kernels.reset_counts()
-            pmesh.four_step_ntt(fsp, mesh, coeffs.reshape(
-                L, 5, fsp.n2, fsp.n1).transpose(-1, -2))
-            pmesh.four_step_intt_natural(fsp, mesh, evals)
-            x, y, _ = dev_srs.points
-            part = pmesh.sharded_msm_window_partials(
-                mesh, x[:, :n].contiguous(), y[:, :n].contiguous(), digits,
-                wb)
-            if _affine(part) != window_ref:
-                raise AssertionError("sharded MSM window != msm.msm")
-            t0 = time.time()
-            commits = pt.commit_batch(dev_srs, wire_polys,
-                                      pt.ProverConfig(mesh=mesh))
-            commit_s = time.time() - t0
-            if commits != commit_ref:
-                raise AssertionError("meshed commit != msm.msm")
-            del evals, coeffs, wire_polys, raw_w, raw_d, pi_col, digits
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = TranscriptProtocol(b"Merkle tree")
-            seed_transcript(t, vk)
-            t0 = time.time()
-            proof = pt.prove_torch(pt.ProverWitness(wires, pi), pk, dev_srs,
-                                   t, pt.ProverConfig(mesh=mesh))
-            torch.cuda.synchronize()
-            prove_s = time.time() - t0
-            peak = torch.cuda.max_memory_allocated()
-        finally:
-            mesh.close()
-        dry = dryrun_multichip(1)
+        if world == 1:
+            setup = MerkleSetup(lay, dev_srs, lite, pk, vk,
+                                pt.ProverWitness(wires, pi))
+            rdzv = tempfile.mkdtemp(prefix="zk-mesh-")
+            with pmesh.make_mesh("cuda", init_method=f"file://{rdzv}/r",
+                                 rank=0, world_size=1) as mesh:
+                ranks = [_mesh_rank(mesh, h, setup)]
+            del setup
+        else:
+            # rank 0 shares card 0 with this process: hand back what the
+            # allocator caches and the whole tables
+            ntt.clear_caches()
+            torch.cuda.empty_cache()
+            ranks = pmesh.spawn_cuda(_mesh_rank, world, h)
+        kernels.reset_counts()
+        dry = dryrun_multichip(world)
         torch.cuda.synchronize()
-        counts.update(kernels.COUNTS)
-        if serialize_proof(proof) != main_bytes:
-            raise AssertionError("meshed h15 proof != the main proof")
+        counts["mesh"] = {k: v + (kernels.COUNTS[k] if world == 1 else 0)
+                          for k, v in ranks[0]["launches"]["mesh"].items()}
+        counts["sharded"] = [r["launches"]["sharded"] for r in ranks]
+        for r in ranks:
+            if r["proof"] != main_bytes:
+                raise AssertionError(f"rank {r['rank']}: sharded h{h} "
+                                     f"proof != the main proof")
         vtr = TranscriptProtocol(b"Merkle tree")
         seed_transcript(vtr, vk)
-        if not verify(vk, lite, proof, pi, vtr):
-            raise AssertionError("meshed proof does not verify")
-        torch.cuda.reset_peak_memory_stats()
-    emit({"mesh": {"height": h, "world_size": mesh.size, "backend": "nccl",
-                   "device": str(mesh.device), "n": n, "n1": fsp.n1,
-                   "n2": fsp.n2, "columns": 5, "window_bits": wb,
-                   "four_step_ms": four, "radix2_ms": radix,
+        if not verify(vk, lite, deserialize_proof(ranks[0]["proof"]), pi,
+                      vtr):
+            raise AssertionError("sharded proof does not verify")
+        many = None
+        if world > 1:
+            many = _prove_many(lay, pk, vk, dev_srs, lite, wires, pi,
+                               main_bytes, {}, devices=list(range(world)))
+    per_rank = {k: [r[k] for r in ranks] for k in (
+        "device", "prove_s", "resident_bytes", "peak_bytes", "sharded_ms",
+        "four_step_ms", "meshed_commit_s")}
+    r0 = ranks[0]
+    emit({"mesh": {"height": h, "world_size": world, "backend": "nccl",
+                   "n": n, "columns": 5, "sharded": r0["sharded"],
+                   "rank_width": r0["width"],
+                   "radix2_ms": r0["radix2_ms"],
                    "ntt_equal": True, "intt_equal": True,
                    "msm_window_equal": True, "meshed_commit_equal": True,
-                   "meshed_commit_s": commit_s,
-                   "prove_s": prove_s, "main_prove_s": main_prove_s,
+                   "main_prove_s": main_prove_s,
                    "proof_bytes_equal": True, "verify": "PASS",
-                   "max_memory_allocated": peak, "dryrun": dry,
-                   "launches": dict(counts)}})
+                   "per_rank_prove_s": per_rank["prove_s"],
+                   "per_rank_resident_bytes": per_rank["resident_bytes"],
+                   "per_rank_peak_bytes": per_rank["peak_bytes"],
+                   "per_rank": per_rank, "dryrun": dry,
+                   "prove_many_cards": many,
+                   "launches": counts["mesh"],
+                   "launches_sharded": counts["sharded"]}})
 
 
 def _same(name, got, want):
@@ -1210,15 +1309,16 @@ def main_path(height, profile=False, mesh_only=False):
     """The main path at `height`, then prove_many, the timeline and the
     memory attribution of one more prove each, the mesh phase, then both
     examples and the micro-benchmarks; returns the kernel launch counts of
-    the main path, prove_many and the mesh phase, {"main": ..., "prove_many":
-    ..., "mesh": ...}, each of exactly its own run. mesh_only: the
+    the main path, prove_many, the mesh phase (rank 0) and each rank's
+    sharded prove, {"main": ..., "prove_many": ..., "mesh": ..., "sharded":
+    [...]}, each of exactly its own run. mesh_only: the
     rehearsal of the mesh phase (see the module docstring), without
     prove_many, the tools, the examples and the micro-benchmarks."""
     import torch
     from zprize_tpu_torch.fields import kernels
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    counts = {"main": {}, "mesh": {}}
+    counts = {"main": {}, "mesh": {}, "sharded": []}
     if not mesh_only:
         counts["prove_many"] = {}
     peak = {}
@@ -1233,7 +1333,7 @@ def main_path(height, profile=False, mesh_only=False):
         _, secs = gen_proof(
             height, timed=True, profile=profile, on_done=on_done,
             many_counts=counts.get("prove_many"), tools=not mesh_only,
-            mesh_counts=counts["mesh"])
+            mesh_counts=counts)
     emit({"main": {"height": height, "n": 1 << (
         (4 + 193 * ((1 << (height - 1)) - 1) + 1 - 1).bit_length()),
         "seconds": secs,
@@ -1425,13 +1525,17 @@ def main():
         counts = main_path(args.height, args.profile,
                            mesh_only="main" not in phases)
         for path, c in counts.items():
-            _require_launched(path, c)
+            for one in (c if path == "sharded" else [c]):
+                _require_launched(path, one)
             if path != "main":
                 path_counts[path] = c
         for k, r in results.items():
             r["launches"] = counts["main"][k]
     for k, r in results.items():
-        r["launches_by_path"] = {p: c[k] for p, c in path_counts.items()}
+        # the sharded prove's launches are one count per rank
+        r["launches_by_path"] = {
+            p: [one[k] for one in c] if p == "sharded" else c[k]
+            for p, c in path_counts.items()}
     if results:
         emit({"kernels": list(results.values())})
     print(card, flush=True)

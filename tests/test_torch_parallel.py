@@ -1,7 +1,10 @@
 """The port's multi-rank prover on the CPU: `zprize_tpu_torch/parallel/
 mesh.py` (four-step NTT and INTT with an all_to_all transpose, sharded
-MSM window, point sum and Poseidon, `spawn_cpu`), the meshed
-`prove_torch` and `entry.dryrun_multichip`.
+MSM window, point sum and Poseidon, `spawn_cpu`), the steps of a rank's
+columns (`Split`, `Columns`: the sharded transforms, the next-gate halo,
+the carried scans, the evaluations) held to the whole functions at both
+parities of log n, the sharded `prove_torch` (each rank holding n/D
+columns of its key, witness, SRS and tables) and `entry.dryrun_multichip`.
 
 Every rank is a gloo process started by `mesh.spawn_cpu`: the JAX package
 runs `tests/test_parallel.py` on 8 virtual devices of one process, which
@@ -30,11 +33,15 @@ from zprize_tpu_torch.circuit import StandardComposer
 from zprize_tpu_torch.curve import g1
 from zprize_tpu_torch.entry import dryrun_circuit
 from zprize_tpu_torch.fields.mont import FR
+from zprize_tpu_torch.ops import ntt, poly
 from zprize_tpu_torch.params import R_MOD
 from zprize_tpu_torch.parallel import mesh as pmesh
 from zprize_tpu_torch.protocol import prover_torch as pt
 from zprize_tpu_torch.protocol.serde import serialize_proof
 from zprize_tpu_torch.protocol.srs import device_srs, host_srs
+from zprize_tpu_torch.protocol.transcript_protocol import \
+    TranscriptProtocol as PortTranscript
+from zprize_tpu_torch.ref import prover as port_rp
 
 SPAWN_TIMEOUT_S = 300
 TAU = 123456789
@@ -111,9 +118,20 @@ def _inputs():
     rng = np.random.default_rng(5)
     polys = FR.tensor([int(v) for v in rng.integers(0, 1 << 62, 2 * 16)],
                       "cpu").reshape(FR.L, 2, 16)
+    # the first 65 powers of tau = 123456789 (those of `srs_1k`; a
+    # circuit of n = 16 reads no more), and the port's preprocess of each
+    # circuit: its key and the transcript seeded with its verifier key
+    pts, lite, _ = device_srs(64, tau=TAU, device="cpu")
+    srs = host_srs(pts, lite)
+    keys = {}
+    for name, (build, label) in CIRCUITS.items():
+        tr = PortTranscript(label)
+        keys[name] = (port_rp.preprocess(build(StandardComposer()), srs,
+                                         tr)[0], tr)
     return {"rows": rows, "evals": evals, "msm_pts": msm_pts,
             "digits": digits, "sum_pts": sum_pts, "left": left,
-            "right": right, "srs_pts": srs_pts, "polys": polys}
+            "right": right, "srs_pts": srs_pts, "polys": polys,
+            "srs": srs, "keys": keys}
 
 
 def _commit_rank(mesh, inp):
@@ -133,8 +151,68 @@ def _commit_rank(mesh, inp):
     return got, bool(calls)
 
 
+SPLIT_LOG_NS = (4, 5)          # n = 16 (n1 = n2 = 4) and 32 (4 x 8)
+SPLIT_STEPS = ("ntt", "intt", "next", "prev", "prefix_product", "divide",
+               "powers_coef", "powers_evals", "sum")
+
+
+def _split_operands(log_n):
+    """Seeded (L, 2, n) values and a point z (Python ints)."""
+    rng = np.random.default_rng(40 + log_n)
+    n = 1 << log_n
+    x = FR.tensor([int(v) for v in rng.integers(0, 1 << 62, 2 * n)],
+                  "cpu").reshape(FR.L, 2, n)
+    return x, int(rng.integers(2, 1 << 62))
+
+
+def _split_steps(cols, x, z):
+    """Each step of `SPLIT_STEPS` on this rank's columns of x, gathered
+    whole (with the whole `Columns` the steps are the whole functions)."""
+    ce, ee = cols.coef, cols.evals
+    zt = FR.scalar(z, "cpu")
+    return {
+        "ntt": ee.gather(cols.ntt(ce.take(x))),
+        "intt": ce.gather(cols.intt(ee.take(x))),
+        "next": ee.gather(ee.shift(ee.take(x), 1)),
+        "prev": ee.gather(ee.shift(ee.take(x), -1)),
+        "prefix_product": ee.gather(ee.prefix_product(FR, ee.take(x[:, 0]))),
+        "divide": ce.gather(ce.divide(FR, ce.take(x[:, 0]), zt)),
+        "powers_coef": ce.gather(ce.powers(FR, zt)),
+        "powers_evals": ee.gather(ee.powers(FR, zt)),
+        "sum": ce.sum(FR, ce.take(x)),
+    }
+
+
+def _widths(pk, witness, sct, srs=None):
+    """The last dimension of every (L, ..., n) tensor of a key, witness,
+    sub-coset tables and SRS (the point-major SRS copy's first)."""
+    ts = (list(pk.sel_poly.values()) + pk.sigma_poly + pk.sigma_evals_n
+          + pk.table_cols + witness.wires_dev
+          + [witness.q_lookup_zero_mask]
+          + [sct.shift_pows, sct.shift_inv_pows, sct.roots])
+    if srs is not None:
+        ts += list(srs.points) + [srs.packed.t()]
+    return {t.shape[-1] for t in ts}
+
+
+def _lookup_circuit(cs):
+    """tests/test_prover_tpu.py lookup circuit (as test_torch_circuit.py
+    builds it)."""
+    cs.lookup_table.insert_multiple_xor(0, 4)
+    a = cs.add_input(2)
+    b = cs.add_input(3)
+    c = cs.add_input(1)
+    cs.lookup_gate(a, b, c)
+    return cs
+
+
+CIRCUITS = {"dryrun": (dryrun_circuit, LABEL),
+            "lookup": (_lookup_circuit, b"lk")}
+
+
 def _primitives_rank(mesh, inp):
-    """Every sharded primitive once on this rank; Python-int results."""
+    """Every sharded primitive once on this rank, and (but on 2 ranks) the
+    sharded proof of the dry-run circuit; Python-int results."""
     fsp = pmesh.FourStepPlan(4, 4, "cpu")                       # n = 256
     flat = [v for row in inp["rows"] for v in row]
     x = FR.tensor(flat, "cpu").reshape(FR.L, fsp.n1, fsp.n2)
@@ -149,10 +227,20 @@ def _primitives_rank(mesh, inp):
     hashes = pmesh.sharded_poseidon_hashes(
         mesh, FR.tensor(inp["left"], "cpu"), FR.tensor(inp["right"], "cpu"))
     commit, sharded = _commit_rank(mesh, inp)
+    split = {}
+    for log_n in SPLIT_LOG_NS:
+        cols = pmesh.Columns(log_n, "cpu", mesh)
+        assert cols.sharded
+        split[log_n] = {k: _fr_ints(v) for k, v in
+                        _split_steps(cols, *_split_operands(log_n)).items()}
+    # at 2 ranks the `proofs` fixture proves
+    proof = serialize_proof(_prove(mesh, inp["srs"], inp["keys"]["dryrun"])) \
+        if mesh.size != 2 else None
     return {"R": [_fr_ints(R[:, i]) for i in range(fsp.n1)],
             "coeffs": _fr_ints(coeffs), "window": _point(window),
             "total": _point(total), "hashes": _fr_ints(hashes),
-            "commit": commit, "sharded": sharded}
+            "commit": commit, "sharded": sharded, "split": split,
+            "proof": proof}
 
 
 @pytest.fixture(scope="module")
@@ -219,55 +307,91 @@ def test_sharded_poseidon_matches_spec_hash2(ranks, inputs):
 # the meshed prover
 # ---------------------------------------------------------------------------
 
-def _prove(mesh, srs, pk, transcript):
-    """The port's prove of the circuit, msm window 8, on the CPU; through
-    `mesh` unless it is None."""
-    cs = dryrun_circuit(StandardComposer())
+def _prove(mesh, srs, key, circuit="dryrun"):
+    """The port's prove of `circuit` (key: its port key and seeded
+    transcript), msm window 2 (the fewest plain point additions at n =
+    16, as in test_torch_circuit.py), on the CPU; through `mesh` unless it
+    is None. Through a mesh every input is sharded first, and every tensor of
+    the rank's key, witness, SRS and sub-coset tables must be n/D columns
+    wide (n when n does not split over the ranks)."""
+    pk, transcript = key
+    cs = CIRCUITS[circuit][0](StandardComposer())
+    dpk = pt.DevProverKey.from_ref(pk, "cpu")
+    witness = pt.ProverWitness.from_composer(cs, pk.n, "cpu")
+    dsrs = pt.DevSRS.from_ref(srs, "cpu")
+    if mesh is not None:
+        cols = pmesh.Columns(pk.n.bit_length() - 1, "cpu", mesh)
+        dpk, witness = dpk.shard(mesh), witness.shard(mesh)
+        dsrs = dsrs.shard(mesh, pk.n)
+        sct = cols.subcoset_tables()
+        # whole, the SRS keeps all its points
+        got = _widths(dpk, witness, sct, dsrs) if cols.sharded else \
+            _widths(dpk, witness, sct)
+        width = pk.n // mesh.size if cols.sharded else pk.n
+        if got != {width}:
+            raise AssertionError(f"rank {mesh.rank}: widths {got}, not "
+                                 f"{{{width}}}")
     cfg = pt.ProverConfig(device=None if mesh else "cpu", mesh=mesh,
-                          msm_window_bits=8)
-    return pt.prove_torch(pt.ProverWitness.from_composer(cs, pk.n, "cpu"),
-                          pt.DevProverKey.from_ref(pk, "cpu"),
-                          pt.DevSRS.from_ref(srs, "cpu"), transcript.clone(),
-                          cfg)
+                          msm_window_bits=2)
+    return pt.prove_torch(witness, dpk, dsrs, transcript.clone(), cfg)
 
 
-@pytest.fixture(scope="module")
-def proofs():
-    """The meshed proof at world size 2 (rank 0's: every rank folds the
-    same gathered window points), the port's unmeshed proof, and the
-    spec's key and proof (JAX package), over the first 65 powers of tau =
-    123456789 (those of `srs_1k`; a circuit of n = 16 reads no more). The
-    ranks prove while this process makes the spec's proof and the
-    unmeshed one."""
+def _spec_proof(circuit, srs):
+    """The spec's verifier key and proof bytes of `circuit` (JAX
+    package), and its composer."""
     from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
     from zprize_tpu.protocol.serde import serialize_proof as jax_serialize
     from zprize_tpu.protocol.transcript_protocol import TranscriptProtocol
     from zprize_tpu.ref import prover as rp
-    from zprize_tpu_torch.protocol.transcript_protocol import \
-        TranscriptProtocol as PortTranscript
-    from zprize_tpu_torch.ref import prover as port_rp
+    build, label = CIRCUITS[circuit]
+    jcs = build(JaxComposer())
+    tr = TranscriptProtocol(label)
+    pk, vk = rp.preprocess(jcs, srs, tr)
+    return {"vk": vk, "proof": jax_serialize(rp.prove(jcs, pk, srs,
+                                                       tr.clone())),
+            "jcs": jcs, "label": label}
+
+
+def _spec_verifies(s, srs, proof_bytes):
+    """The spec's verifier on proof bytes, read back by the JAX package's
+    deserializer."""
+    from zprize_tpu.protocol.serde import deserialize_proof
+    from zprize_tpu.protocol.transcript_protocol import TranscriptProtocol
+    from zprize_tpu.ref import prover as rp
+    from zprize_tpu.ref.verifier import verify
+    vtr = TranscriptProtocol(s["label"])
+    rp.seed_transcript(vtr, s["vk"])
+    return verify(s["vk"], srs, deserialize_proof(proof_bytes),
+                  s["jcs"].public_inputs, vtr)
+
+
+@pytest.fixture(scope="module")
+def spec(inputs):
+    return {name: _spec_proof(name, inputs["srs"]) for name in CIRCUITS}
+
+
+@pytest.fixture(scope="module")
+def proofs(inputs, spec):
+    """The meshed proof at world size 2 (rank 0's: every rank folds the
+    same gathered window points), the port's unmeshed proof, and the
+    spec's key and proof (JAX package), over the first 65 powers of tau =
+    123456789 (those of `srs_1k`; a circuit of n = 16 reads no more). The
+    ranks prove while this process makes the unmeshed proof."""
     threads = torch.get_num_threads()
     # one thread, as each rank has: the plain versions' small tensor
     # operations slow down ~3x when 8 threads contend with the ranks
     torch.set_num_threads(1)
+    srs, key = inputs["srs"], inputs["keys"]["dryrun"]
     try:
-        pts, lite, _ = device_srs(64, tau=TAU, device="cpu")
-        srs = host_srs(pts, lite)
-        ptr = PortTranscript(LABEL)
-        port_pk, _ = port_rp.preprocess(
-            dryrun_circuit(StandardComposer()), srs, ptr)
         with ThreadPoolExecutor(max_workers=1) as ex:
-            ranks = ex.submit(pmesh.spawn_cpu, _prove, 2, srs, port_pk, ptr,
+            ranks = ex.submit(pmesh.spawn_cpu, _prove, 2, srs, key,
                               timeout_s=SPAWN_TIMEOUT_S)
-            jcs = dryrun_circuit(JaxComposer())
-            tr = TranscriptProtocol(LABEL)
-            pk, vk = rp.preprocess(jcs, srs, tr)
-            spec = jax_serialize(rp.prove(jcs, pk, srs, tr.clone()))
-            unmeshed = serialize_proof(_prove(None, srs, port_pk, ptr))
+            unmeshed = serialize_proof(_prove(None, srs, key))
             meshed = serialize_proof(ranks.result())
     finally:
         torch.set_num_threads(threads)
-    return {"srs": srs, "vk": vk, "jcs": jcs, "spec": spec,
+    s = spec["dryrun"]
+    return {"srs": srs, "vk": s["vk"], "jcs": s["jcs"], "spec": s["proof"],
             "unmeshed": unmeshed, "meshed": meshed}
 
 
@@ -307,12 +431,180 @@ def test_meshed_commit_equals_unmeshed(ranks, unmeshed_commit):
     assert ranks["commit"] == unmeshed_commit
 
 
-def test_commit_on_three_ranks_is_unmeshed(inputs, unmeshed_commit):
+def _three_rank(mesh, inp):
+    """A commit and a proof on one of 3 ranks, over which n = 16 splits
+    neither by points nor by columns."""
+    commit = _commit_rank(mesh, inp)
+    return commit, serialize_proof(_prove(mesh, inp["srs"],
+                                          inp["keys"]["dryrun"]))
+
+
+@pytest.fixture(scope="module")
+def three_ranks(inputs):
+    return pmesh.spawn_cpu(_three_rank, 3, inputs, timeout_s=SPAWN_TIMEOUT_S)
+
+
+def test_commit_on_three_ranks_is_unmeshed(three_ranks, unmeshed_commit):
     """n = 16 does not split over 3 ranks: every rank commits whole."""
-    got, sharded = pmesh.spawn_cpu(_commit_rank, 3, inputs,
-                                   timeout_s=SPAWN_TIMEOUT_S)
+    got, sharded = three_ranks[0]
     assert not sharded
     assert got == unmeshed_commit
+
+
+def test_proof_on_three_ranks_runs_whole(three_ranks, spec):
+    """A four-step side of n = 16 (4) does not split over 3 ranks: every
+    rank holds all n columns (`_prove` checks the widths) and proves
+    whole, the spec's bytes."""
+    assert three_ranks[1] == spec["dryrun"]["proof"]
+
+
+# ---------------------------------------------------------------------------
+# a rank's columns and the sharded prover, on 2 and 4 ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def split_whole():
+    """The whole functions (radix-2 NTT, torch.roll, the scans, powers,
+    sum_last) on the operands the ranks split."""
+    return {log_n: {k: _fr_ints(v) for k, v in _split_steps(
+        pmesh.Columns(log_n, "cpu"), *_split_operands(log_n)).items()}
+        for log_n in SPLIT_LOG_NS}
+
+
+@pytest.mark.parametrize("log_n", SPLIT_LOG_NS)
+@pytest.mark.parametrize("step", SPLIT_STEPS)
+def test_split_step_equals_whole(ranks, split_whole, step, log_n):
+    """Each step on the rank's columns, gathered, equals the whole step:
+    at n = 16 over 4 ranks a rank holds one column of each row, so every
+    element sits at a rank's edge; at n = 32 the coefficient (4) and the
+    evaluation (8) layouts differ."""
+    assert ranks["split"][log_n][step] == split_whole[log_n][step]
+
+
+def test_split_whole_steps_match_python_ints():
+    """The whole `Split` steps that have no JAX counterpart held to
+    Python ints: the shifts, the shifted prefix product, the padded
+    quotient by (X - z) and the powers."""
+    log_n = 5
+    n = 1 << log_n
+    x, z = _split_operands(log_n)
+    got = {k: _fr_ints(v) for k, v in _split_steps(
+        pmesh.Columns(log_n, "cpu"), x, z).items()}
+    a = _fr_ints(x[:, 0])
+    assert got["next"][:n] == a[1:] + a[:1]
+    assert got["prev"][:n] == a[-1:] + a[:-1]
+    pre, acc = [], 1
+    for v in a:
+        pre.append(acc)
+        acc = acc * v % R_MOD
+    assert got["prefix_product"] == pre
+    q = [sum(a[j] * pow(z, j - i - 1, R_MOD) for j in range(i + 1, n))
+         % R_MOD for i in range(n)]
+    assert got["divide"] == q
+    assert got["powers_coef"] == [pow(z, g, R_MOD) for g in range(n)]
+
+
+def _sharded_proof(ranks, proofs):
+    """The dry-run circuit's sharded proof at this world size: on 2 ranks
+    the `proofs` fixture's."""
+    return ranks["proof"] or proofs["meshed"]
+
+
+def test_sharded_proof_equals_spec(ranks, proofs, spec):
+    """The dry-run circuit, n = 16, each rank holding n/D columns of its
+    key, witness, SRS and tables (checked in `_prove`)."""
+    assert _sharded_proof(ranks, proofs) == spec["dryrun"]["proof"]
+
+
+def test_sharded_proof_verifies(ranks, proofs, spec, inputs):
+    assert _spec_verifies(spec["dryrun"], inputs["srs"],
+                          _sharded_proof(ranks, proofs))
+
+
+def test_sharded_proof_equals_unmeshed_port_proof(ranks, proofs):
+    assert _sharded_proof(ranks, proofs) == proofs["unmeshed"]
+
+
+def _fake_rank(rank, size):
+    """A rank's place in a mesh, for the steps that need no collective
+    (`shard`, and `prove_torch` up to its first collective)."""
+    return types.SimpleNamespace(rank=rank, size=size,
+                                 device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_rank_shards_put_together_make_the_whole(inputs, size):
+    """Each rank's `shard` of the lookup circuit's key, witness and SRS,
+    its columns put back at their places (`Layout.local`), gives the
+    whole: coefficient columns for the polys and the SRS, evaluation
+    columns for the sigma evaluations, tables, wires and mask."""
+    pk, _ = inputs["keys"]["lookup"]
+    n = pk.n
+    cs = _lookup_circuit(StandardComposer())
+    dpk = pt.DevProverKey.from_ref(pk, "cpu")
+    wit = pt.ProverWitness.from_composer(cs, n, "cpu")
+    srs = pt.DevSRS.from_ref(inputs["srs"], "cpu")
+
+    def whole(pick, shards, layouts):
+        out = torch.zeros_like(pick(dpk, wit, srs))[..., :n]
+        for (rk, w, sr), lay in zip(shards, layouts):
+            pos = [g for g in range(n) if lay.local(g) is not None]
+            out[..., pos] = pick(rk, w, sr)
+        return out
+
+    shards, coef, evals = [], [], []
+    for r in range(size):
+        mesh = _fake_rank(r, size)
+        cols = pmesh.Columns(n.bit_length() - 1, "cpu", mesh)
+        shards.append((dpk.shard(mesh), wit.shard(mesh),
+                       srs.shard(mesh, n)))
+        assert {x.shard_of for x in shards[-1]} == {cols.key}
+        coef.append(cols.coef.layout)
+        evals.append(cols.evals.layout)
+    picks = {
+        "q_lookup": (lambda k, w, s: k.sel_poly["q_lookup"], coef),
+        "sigma_1": (lambda k, w, s: k.sigma_poly[1], coef),
+        "srs_x": (lambda k, w, s: s.points[0], coef),
+        "sigma_evals_2": (lambda k, w, s: k.sigma_evals_n[2], evals),
+        "table_0": (lambda k, w, s: k.table_cols[0], evals),
+        "wire_3": (lambda k, w, s: w.wires_dev[3], evals),
+        "mask": (lambda k, w, s: w.q_lookup_zero_mask, evals),
+    }
+    for name, (pick, layouts) in picks.items():
+        assert torch.equal(whole(pick, shards, layouts),
+                           pick(dpk, wit, srs)[..., :n]), name
+
+
+def test_sharded_inputs_need_their_mesh(inputs):
+    """A key sharded for rank 0 is refused without a mesh and by rank 1,
+    before any collective."""
+    pk, tr = inputs["keys"]["dryrun"]
+    cs = dryrun_circuit(StandardComposer())
+    sharded = pt.DevProverKey.from_ref(pk, "cpu").shard(_fake_rank(0, 2))
+    args = (pt.ProverWitness.from_composer(cs, pk.n, "cpu"), sharded,
+            pt.DevSRS.from_ref(inputs["srs"], "cpu"), tr.clone())
+    with pytest.raises(ValueError, match="need the mesh"):
+        pt.prove_torch(*args, pt.ProverConfig(device="cpu"))
+    with pytest.raises(ValueError, match=r"holds the columns .* \(16, 2, 0\)"):
+        pt.prove_torch(*args, pt.ProverConfig(mesh=_fake_rank(1, 2)))
+
+
+@pytest.fixture(scope="module")
+def lookup_proof(inputs):
+    """The real-lookup circuit's sharded proof on 2 ranks: round 2 gathers
+    the compressed columns for the host's combine_split and keeps each
+    rank's columns of h1 and h2."""
+    return serialize_proof(pmesh.spawn_cpu(
+        _prove, 2, inputs["srs"], inputs["keys"]["lookup"], "lookup",
+        timeout_s=SPAWN_TIMEOUT_S))
+
+
+def test_sharded_lookup_proof_equals_spec(lookup_proof, spec):
+    assert lookup_proof == spec["lookup"]["proof"]
+
+
+def test_sharded_lookup_proof_verifies(lookup_proof, spec, inputs):
+    assert _spec_verifies(spec["lookup"], inputs["srs"], lookup_proof)
 
 
 # ---------------------------------------------------------------------------

@@ -138,9 +138,11 @@ def dryrun_multichip(n_devices, device=None):
     """The counterpart of `__graft_entry__.dryrun_multichip`: the sharded
     primitives on `n_devices` ranks, then a whole meshed proof, byte-equal
     to the spec's and verified. Prints the same two lines and returns rank
-    0's summary. On the CPU (device="cpu") the ranks are spawned gloo
-    processes; on CUDA `n_devices` must be 1: one rank on an NCCL group of
-    one card."""
+    0's summary; raises, naming the rank, when a rank fails. On the CPU
+    (device="cpu") the ranks are spawned gloo processes; on CUDA one
+    process a card over NCCL (`mesh.spawn_cuda`), or with one device one
+    rank in this process."""
+    import torch
     from .parallel import mesh as pmesh
     from .protocol.serde import serialize_proof
     from .protocol.srs import device_srs, host_srs
@@ -150,9 +152,10 @@ def dryrun_multichip(n_devices, device=None):
     if n_devices < 1 or n_devices & (n_devices - 1):
         raise ValueError("power-of-two devices expected")
     dev = resolve(device)
-    if dev.type == "cuda" and n_devices != 1:
-        raise ValueError("on CUDA the dry run is one rank on one card; run "
-                         "more ranks with device='cpu'")
+    if dev.type == "cuda" and n_devices > torch.cuda.device_count():
+        raise ValueError(f"{n_devices} ranks on CUDA need {n_devices} "
+                         f"cards; this machine has "
+                         f"{torch.cuda.device_count()}")
     # the spec's key and proof, once, on the host; device_srs with this
     # tau gives the points of SRS.setup(2^8, tau)
     pts, lite, _ = device_srs(1 << DRYRUN_LOG_SRS, tau=DRYRUN_TAU,
@@ -166,6 +169,9 @@ def dryrun_multichip(n_devices, device=None):
     if dev.type == "cpu":
         out = pmesh.spawn_cpu(_dryrun_rank, n_devices, *args,
                               timeout_s=DRYRUN_TIMEOUT_S)
+    elif n_devices > 1:
+        out = pmesh.spawn_cuda(_dryrun_rank, n_devices, *args,
+                               timeout_s=DRYRUN_TIMEOUT_S)[0]
     else:
         with tempfile.TemporaryDirectory(prefix="zk-mesh-") as d:
             with pmesh.make_mesh(dev, init_method=f"file://{d}/rendezvous",

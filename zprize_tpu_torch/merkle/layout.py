@@ -178,9 +178,27 @@ class MerkleLayout:
             [t.prologue_wires, wires_g, root_gate, pad_rows], axis=0)  # (n,4)
         self.root_gate_pos = PROLOGUE_GATES + GADGET_GATES * g
 
-        # ---- selector columns as Montgomery limb tensors (L, n), tiled on
-        # the device (15 x (L, 2^22) int32 is 4 GiB at height 15) ----
-        self.selector_limbs = {}
+        self._selector_limbs = self._tile_selectors()
+
+    @property
+    def selector_limbs(self):
+        """{selector name: (L, n) Montgomery limb tensor} on the device
+        (15 x (L, 2^22) int32 is 4 GiB at height 15). `preprocess_layout`
+        releases them once the key holds their polynomials; a later read
+        tiles them again."""
+        if self._selector_limbs is None:
+            self._selector_limbs = self._tile_selectors()
+        return self._selector_limbs
+
+    def release_selector_limbs(self):
+        """Drop the tiled selector columns (see `selector_limbs`)."""
+        self._selector_limbs = None
+
+    def _tile_selectors(self):
+        """The selector columns, tiled from the gadget template."""
+        t = get_template()
+        dev = self.device
+        out = {}
         for name in SELECTOR_NAMES:
             tmpl = torch.from_numpy(FR.to_mont_host(t.selectors[name]).astype(
                 np.int32)).to(dev)                                 # (L, 193)
@@ -197,8 +215,9 @@ class MerkleLayout:
             root_sel = FR.tensor([root_val], dev)
             padz = torch.zeros((FR.L, self.n - self.n_real), dtype=torch.int32,
                                device=dev)
-            self.selector_limbs[name] = torch.cat(
-                [pro, tmpl.repeat(1, g), root_sel, padz], dim=1)
+            out[name] = torch.cat(
+                [pro, tmpl.repeat(1, self.n_gadgets), root_sel, padz], dim=1)
+        return out
 
     # ------------------------------------------------------------------
     # sigma permutation (vectorized; matches composer cycle semantics)

@@ -6,7 +6,8 @@ recomputes sub-coset evaluations on the fly.
 
 Each phase ends in a sync that pulls ONE element to the host, so a device
 fault is attributed to its phase; `log` (if given) receives one line per
-phase with its seconds."""
+phase with its seconds. The layout's tiled selector columns are released
+at the end (`MerkleLayout.release_selector_limbs`)."""
 
 import time
 
@@ -75,6 +76,10 @@ def preprocess_layout(lay: MerkleLayout, dev_srs, transcript,
     zero_col = torch.zeros((FR.L, n), dtype=torch.int32, device=cfg.device)
     pk.table_cols = [zero_col] * 4
     pk.lookup_degenerate = not bool(lay.selector_limbs["q_lookup"].any())
+    # the key holds the selectors' polynomials now: the 4 GB of tiled
+    # columns at height 15 need not stay (the prover and prove_many's
+    # replicas read the key, not the layout)
+    lay.release_selector_limbs()
     vk = VerifierKey(n, commitments, [None] * 4)
     seed_transcript(transcript, vk)
     return pk, vk

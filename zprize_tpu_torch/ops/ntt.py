@@ -113,9 +113,14 @@ class SubcosetTables:
     back from the per-sub-coset INTTs D_j as
         t_{k+nq} = sum_j combine_c[q, j] · D_j[k],
         combine_c[q, j] = z^{-jq} · inv(8 u^q),  u = g^n, z = w8n^n.
-    Same tables as the JAX package's SubcosetTables."""
+    Same tables as the JAX package's SubcosetTables.
 
-    def __init__(self, log_n: int, device):
+    coef, evals: `poly.Layout`s of one rank of a sharded prover; then
+    shift_pows and shift_inv_pows hold only the columns of `coef` (they
+    meet coefficients) and roots those of `evals` (they meet evaluations).
+    Without them every table is whole."""
+
+    def __init__(self, log_n: int, device, coef=None, evals=None):
         self.log_n = log_n
         n = 1 << log_n
         self.n = n
@@ -124,16 +129,19 @@ class SubcosetTables:
         omega = root_of_unity(log_n)
         u = pow(g, n, R_MOD)
         zeta = pow(w8n, n, R_MOD)
+
+        def pows(layout, x):
+            x = FR.scalar(x, device)
+            return poly.powers(FR, x, n) if layout is None \
+                else layout.powers(FR, x)
+
         self.shifts = [g * pow(w8n, j, R_MOD) % R_MOD for j in range(8)]
-        sp, sip = [], []
-        for j in range(8):
-            s = self.shifts[j]
-            sp.append(poly.powers(FR, FR.scalar(s, device), n))
-            sip.append(poly.powers(FR, FR.scalar(pow(s, -1, R_MOD), device),
-                                   n))
-        self.shift_pows = torch.stack(sp, dim=1)          # (L, 8, n)
-        self.shift_inv_pows = torch.stack(sip, dim=1)
-        self.roots = poly.powers(FR, FR.scalar(omega, device), n)
+        self.shift_scalars = FR.tensor(self.shifts, device)      # (L, 8)
+        self.shift_pows = torch.stack(
+            [pows(coef, s) for s in self.shifts], dim=1)          # (L, 8, n)
+        self.shift_inv_pows = torch.stack(
+            [pows(coef, pow(s, -1, R_MOD)) for s in self.shifts], dim=1)
+        self.roots = pows(evals, omega)
         vh = [(u * pow(zeta, j, R_MOD) - 1) % R_MOD for j in range(8)]
         self.vh_inv = FR.tensor([pow(v, -1, R_MOD) for v in vh], device)
         inv8 = pow(8, -1, R_MOD)
@@ -145,12 +153,21 @@ class SubcosetTables:
 
 
 @lru_cache(maxsize=None)
-def _sct(log_n, device_str):
-    return SubcosetTables(log_n, torch.device(device_str))
+def _sct(log_n, device_str, coef, evals):
+    return SubcosetTables(log_n, torch.device(device_str), coef, evals)
 
 
-def get_subcoset_tables(log_n: int, device) -> SubcosetTables:
-    return _sct(log_n, str(canonical(device)))
+def get_subcoset_tables(log_n: int, device, coef=None,
+                        evals=None) -> SubcosetTables:
+    return _sct(log_n, str(canonical(device)), coef, evals)
+
+
+def clear_caches():
+    """Drop every cached plan and sub-coset table (all devices): a rank of
+    a sharded prover calls it once its set-up is sharded, so no whole
+    table stays resident."""
+    _plan.cache_clear()
+    _sct.cache_clear()
 
 
 def coset_ntt_shifted(plan: NttPlan, a, shift_pows):

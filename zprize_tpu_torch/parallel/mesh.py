@@ -1,28 +1,47 @@
 """Multi-rank proving over `torch.distributed` — the port of
-`zprize_tpu/parallel/mesh.py`.
+`zprize_tpu/parallel/mesh.py` and of the sharded branch of
+`zprize_tpu/protocol/prover_tpu.py` (`ProverConfig.shard_last`).
 
 PyTorch has no SPMD partitioner, so a mesh here is a process group (one
 rank per process and card: NCCL on the card, gloo on the CPU) and every
 sharded step says by hand what each rank computes and which collective
-joins the parts:
-  * four-step NTT: each rank transforms its block of rows, applies the
-    twiddles of those rows, and one `all_to_all_single` transposes the
-    blocks, so each rank then transforms its block of columns;
-  * MSM: the points are split over the ranks (data parallel), each rank
-    sorts and sums its own block into window points, and the window
-    points are all-gathered and added in rank order (a point sum is no
-    all-reduce);
+joins the parts.
+
+Which columns a rank holds. A prover of size n = n1 * n2 (n1 = 2^floor(
+log n / 2) <= n2, the four-step plan's sides) splits every n-length axis
+over its D ranks by column (`Columns`):
+  * coefficient form, `Layout(n, n1, D, r)`: rank r holds the columns g
+    with (g mod n1) in block r of n1 (n1/D wide), ordered by g;
+  * evaluation form, `Layout(n, n2, D, r)`: the same with n2.
+These are the input and output sides of the four-step transform, so a
+forward NTT (n1 x n2) goes from the coefficient layout to the evaluation
+layout, and an inverse (n2 x n1) back, each with one `all_to_all_single`
+and no gather. When log n is even the two layouts are one; when it is
+odd they differ, and no step mixes the two forms. Every table follows
+the form it meets: the SRS points and the shift powers the coefficient
+layout, the roots and the sigma and lookup columns the evaluation one.
+When a side does not split over D, every step runs whole on every rank
+(the JAX package replicates then).
+
+The collectives, each named where it is used:
+  * four-step NTT / INTT: one `all_to_all_single` (the transpose);
+  * the next gate (`Split.shift`): an `all_gather` of one edge column;
+  * prefix products and synthetic division (`Split.prefix_product`,
+    `Split.divide`): an `all_gather` of each rank's block totals, whose
+    scan in natural block order gives each block its carry (`ops/poly`'s
+    carry-in forms);
+  * evaluations (`Split.sum`): an `all_gather` of the partial sums, added
+    in rank order (a modular sum is no NCCL reduction);
+  * MSM: each rank sums its own points and scalars into window points,
+    which are all-gathered and added in rank order by K7;
+  * the plookup `combine_split` (host code): the compressed columns are
+    gathered whole, the one gathered step;
   * Poseidon: each rank hashes its block of the batch.
 
-Tensors are limbs-leading (L, ..., m), as everywhere in the port. A
-function below takes its operands whole on every rank, works on this
-rank's block and returns the whole result on every rank: the rest of the
-prover stays whole on every rank (see `protocol/prover_torch.py`).
-
-`spawn_cpu` runs a function on several gloo ranks of this machine, one
-process each: the tests, `entry.dryrun_multichip` and
-`tools/multihost_dryrun` use it where the JAX package used eight virtual
-CPU devices in one process.
+`spawn_cpu` and `spawn_cuda` run a function on several ranks of this
+machine, one process each (gloo on the CPU, NCCL one card a rank): the
+tests, `entry.dryrun_multichip` and `tools/multihost_dryrun` use them where
+the JAX package used eight virtual CPU devices in one process.
 """
 
 import multiprocessing as mp
@@ -38,11 +57,14 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from ..params import R_MOD
 from ..device import resolve
 from ..fields import mont
 from ..fields.mont import FR
 from ..ref.domain import Domain
-from ..ops import msm, ntt
+from ..ref.field import root_of_unity
+from ..ops import msm, ntt, poly
+from ..ops.poly import Layout
 from ..curve import g1
 from ..poseidon.vectorized import hash2_batch
 
@@ -147,20 +169,25 @@ def _sum_over_ranks(mesh, p):
 
 
 # ---------------------------------------------------------------------------
-# spawned CPU ranks
+# spawned ranks
 # ---------------------------------------------------------------------------
 
-def _rank_main(fn, rank, world, init_method, env, args, timeout_s, results):
-    torch.set_num_threads(1)
+def _rank_main(fn, rank, world, kind, init_method, env, args, timeout_s,
+               results):
+    if kind == "cpu":
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank)
     mesh = None
     try:
         if env is None:
-            mesh = make_mesh("cpu", init_method=init_method, rank=rank,
+            mesh = make_mesh(dev, init_method=init_method, rank=rank,
                              world_size=world, timeout_s=timeout_s)
         else:
             # torchrun's environment: make_mesh reads it all
             os.environ.update(env, RANK=str(rank), LOCAL_RANK=str(rank))
-            mesh = make_mesh("cpu", timeout_s=timeout_s)
+            mesh = make_mesh(dev, timeout_s=timeout_s)
         msg = (rank, True, pickle.dumps(fn(mesh, *args)))
     except BaseException:
         msg = (rank, False, traceback.format_exc())
@@ -179,17 +206,8 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
-    """Run `fn(mesh, *args)` on `world` gloo ranks, one spawned process
-    each, and return rank 0's result. `fn`, `args` and the result must
-    pickle. The ranks meet by a `file://` rendezvous in a temporary
-    directory or, with `torchrun_env`, as torchrun starts them: RANK,
-    LOCAL_RANK, WORLD_SIZE, MASTER_ADDR=127.0.0.1 and a free MASTER_PORT
-    in each rank's environment, and init_method "env://".
-
-    Raises RuntimeError naming the rank if a rank raises or dies, and
-    TimeoutError naming the ranks still running after `timeout_s`
-    seconds; every process is killed before it returns or raises."""
+def _spawn(name, kind, fn, world, args, timeout_s, torchrun_env):
+    """Every rank's result, in rank order (see `spawn_cpu`)."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     out = {}
@@ -200,7 +218,7 @@ def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
             env = {"WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
                    "MASTER_PORT": str(_free_port())}
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, r, world, init, env, args,
+                             args=(fn, r, world, kind, init, env, args,
                                    timeout_s, results))
                  for r in range(world)]
         for p in procs:
@@ -212,7 +230,7 @@ def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
                 if left <= 0:
                     late = [r for r in range(world) if r not in out]
                     raise TimeoutError(
-                        f"spawn_cpu: rank(s) {late} still running after "
+                        f"{name}: rank(s) {late} still running after "
                         f"{timeout_s} s; killed")
                 try:
                     rank, ok, payload = results.get(timeout=min(left, 1.0))
@@ -224,12 +242,12 @@ def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
                         time.sleep(1.0)
                         if results.empty():
                             raise RuntimeError(
-                                f"spawn_cpu: rank {dead[0]} exited with "
+                                f"{name}: rank {dead[0]} exited with "
                                 f"code {procs[dead[0]].exitcode} without "
                                 f"a result")
                     continue
                 if not ok:
-                    raise RuntimeError(f"spawn_cpu: rank {rank} raised:\n"
+                    raise RuntimeError(f"{name}: rank {rank} raised:\n"
                                        f"{payload}")
                 out[rank] = payload
         finally:
@@ -239,7 +257,149 @@ def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
             for p in procs:
                 p.join(timeout=30)
             results.close()
-    return pickle.loads(out[0])
+    return [pickle.loads(out[r]) for r in range(world)]
+
+
+def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):
+    """Run `fn(mesh, *args)` on `world` gloo ranks, one spawned process
+    each, and return rank 0's result. `fn`, `args` and the results must
+    pickle. The ranks
+    meet by a `file://` rendezvous in a temporary directory or, with
+    `torchrun_env`, as torchrun starts them: RANK, LOCAL_RANK, WORLD_SIZE,
+    MASTER_ADDR=127.0.0.1 and a free MASTER_PORT in each rank's
+    environment, and init_method "env://".
+
+    Raises RuntimeError naming the rank if a rank raises or dies, and
+    TimeoutError naming the ranks still running after `timeout_s`
+    seconds; every process is killed before it returns or raises."""
+    return _spawn("spawn_cpu", "cpu", fn, world, args, timeout_s,
+                  torchrun_env)[0]
+
+
+def spawn_cuda(fn, world, *args, timeout_s=TIMEOUT_S):
+    """`spawn_cpu` on the cards: rank r is a process on card r of an NCCL
+    group (`make_mesh` sets the card before the group starts), with the
+    same deadlines and the same failures. Returns every rank's result, in
+    rank order. Needs `world` cards."""
+    have = torch.cuda.device_count()
+    if world > have:
+        raise ValueError(f"spawn_cuda: {world} ranks need {world} cards; "
+                         f"this machine has {have}")
+    return _spawn("spawn_cuda", "cuda", fn, world, args, timeout_s, False)
+
+
+# ---------------------------------------------------------------------------
+# a rank's columns and the collectives over them
+# ---------------------------------------------------------------------------
+
+class Split:
+    """The columns `layout` (a `poly.Layout`) of this rank of `mesh`, and
+    the steps whose result on them needs the other ranks' columns. With
+    mesh None the layout is the whole axis and every step is the whole
+    one, with no collective."""
+
+    def __init__(self, layout, mesh=None):
+        self.layout = layout
+        self.mesh = mesh
+
+    def take(self, t):
+        """This rank's columns of the whole (..., n) tensor t."""
+        return self.layout.take(t)
+
+    def gather(self, t):
+        """The whole (..., n) tensor from every rank's columns t (...,
+        n/D), in natural order on every rank (one all_gather)."""
+        if self.mesh is None:
+            return t
+        lay = self.layout
+        s = t.shape[:-1]
+        parts = torch.stack(_all_gather(self.mesh, t), dim=-2)
+        return parts.reshape(s + (lay.size, lay.rows, lay.c)).transpose(
+            -3, -2).reshape(s + (lay.n,))
+
+    def shift(self, t, k):
+        """The rank's columns g of whole[(g + k) mod n], k = 1 (the next
+        gate) or -1: each row block takes its one missing column from the
+        neighbouring rank's edge (one all_gather of an edge column), the
+        last rank's from the first rank's next row, and the first rank's
+        from the last rank's previous row."""
+        if self.mesh is None:
+            return torch.roll(t, -k, dims=-1)
+        lay = self.layout
+        s = t.shape[:-1]
+        t3 = t.reshape(s + (lay.rows, lay.c))
+        D, r = lay.size, lay.rank
+        if k == 1:
+            parts = _all_gather(self.mesh, t3[..., 0])
+            halo = parts[r + 1] if r + 1 < D else parts[0].roll(-1, -1)
+            out = torch.cat([t3[..., 1:], halo[..., None]], dim=-1)
+        elif k == -1:
+            parts = _all_gather(self.mesh, t3[..., -1])
+            halo = parts[r - 1] if r > 0 else parts[D - 1].roll(1, -1)
+            out = torch.cat([halo[..., None], t3[..., :-1]], dim=-1)
+        else:
+            raise ValueError(f"shift by {k}: only 1 and -1")
+        return out.reshape(s + (lay.width,))
+
+    def sum(self, cfg, a):
+        """sum_last of the whole axis: the rank's partial sums (L, ...),
+        all-gathered and added in rank order; the same words on every
+        rank."""
+        part = poly.sum_last(cfg, a)
+        if self.mesh is None:
+            return part
+        return poly.sum_last(cfg, torch.stack(_all_gather(self.mesh, part),
+                                              dim=-1))
+
+    def powers(self, cfg, x):
+        """x^g for the rank's columns g, (L, n/D); no collective."""
+        return self.layout.powers(cfg, x)
+
+    def _carries(self, totals, chain):
+        """Each of this rank's row blocks' carry: the block totals (L,
+        ..., rows) of every rank, all-gathered, put in natural block order
+        (block r of row q is number q*D + r), scanned by `chain` (a scan
+        whose element b is the carry of block b) and cut back to this
+        rank's blocks."""
+        lay = self.layout
+        seq = torch.stack(_all_gather(self.mesh, totals), dim=-1)
+        s = seq.shape[:-2]
+        out = chain(seq.reshape(s + (lay.rows * lay.size,)))
+        return out.reshape(s + (lay.rows, lay.size))[..., lay.rank]
+
+    def prefix_product(self, cfg, a):
+        """poly.prefix_product(a, shift_one=True) of the whole axis: each
+        row block carries in the product of the blocks before it."""
+        if self.mesh is None:
+            return poly.prefix_product(cfg, a, shift_one=True)
+        lay = self.layout
+        s = a.shape[:-1]
+        a3 = a.reshape(s + (lay.rows, lay.c))
+        carry = self._carries(poly.prod_last(cfg, a3), lambda seq:
+                              poly.prefix_product(cfg, seq, shift_one=True))
+        return poly.prefix_product(cfg, a3, shift_one=True,
+                                   carry=carry).reshape(s + (lay.width,))
+
+    def divide(self, cfg, coeffs, z):
+        """The quotient of the whole polynomial by (X - z), padded with a
+        zero to n coefficients; z is (L,). Each row block carries in the
+        remainder of the coefficients above it: the blocks' values at z,
+        chained by a synthetic division by (X - z^c) over the blocks."""
+        if self.mesh is None:
+            q, _ = poly.divide_linear(cfg, coeffs, z)
+            return torch.cat([q, torch.zeros_like(q[..., :1])], dim=-1)
+        lay = self.layout
+        s = coeffs.shape[:-1]
+        c3 = coeffs.reshape(s + (lay.rows, lay.c))
+        zp = poly.powers(cfg, z, lay.c + 1)                # z^0 .. z^c
+        values = poly.sum_last(cfg, mont.mont_mul(
+            cfg, c3, zp[:, :-1].reshape((cfg.L,) + (1,) * (c3.dim() - 2)
+                                        + (lay.c,))))
+        zc = zp[:, -1]
+        carry = self._carries(values, lambda seq: poly.divide_linear(
+            cfg, seq, zc, carry=torch.zeros_like(seq[..., 0]))[0])
+        q, _ = poly.divide_linear(cfg, c3, z, carry=carry)
+        return q.reshape(s + (lay.width,))
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +410,11 @@ class FourStepPlan:
     """n = n1 * n2; input x[i1 + n1*i2] laid out as rows (L, n1, n2), row
     i1 at [:, i1, :]. Output R[k1][k2] = X[k2 + n2*k1] as (L, n1, n2): in
     row-major order the natural evaluations. Each rank holds n1/D rows
-    before the transpose and n2/D columns after it. The plan holds only
-    the radix-2 plans (cached per card by `ops/ntt`) of sizes n1, n2 and
-    n; its twiddles are gathered from the last one's tables per call."""
+    before the transpose and n2/D columns after it: its columns of
+    `Layout(n, n1)` in, of `Layout(n, n2)` out. The plan holds the radix-2
+    plans (cached per card by `ops/ntt`) of sizes n1 and n2, and the
+    rank's twiddles once they are asked for: they go with the plan (the
+    prover makes its plans per prove, so nothing stays after it)."""
 
     def __init__(self, log_n1, log_n2, device=None):
         self.log_n1, self.log_n2 = log_n1, log_n2
@@ -261,7 +423,7 @@ class FourStepPlan:
         self.device = resolve(device)
         self.plan1 = ntt.get_plan(log_n1, self.device)
         self.plan2 = ntt.get_plan(log_n2, self.device)
-        self.plan = ntt.get_plan(log_n1 + log_n2, self.device)
+        self._tw = {}
 
     def fits(self, mesh):
         """Whether the rows and the columns both split over the ranks."""
@@ -269,78 +431,155 @@ class FourStepPlan:
 
     def twiddles(self, mesh, invert):
         """w^(i1 k2) (or w^-(i1 k2)) for this rank's rows i1 only, (L,
-        n1/D, n2). i1 k2 < n, and the radix-2 plan of size n holds w^k
-        for k < n/2, so w^(k + n/2) = -w^k: one K4 pass and a gather, and
-        nothing stays resident after the call. Not scaled by 1/n: the
-        inverse scales by 1/n2 and 1/n1 in its two transforms."""
-        rows = self.n1 // mesh.size
-        i1 = torch.arange(mesh.rank * rows, (mesh.rank + 1) * rows,
-                          dtype=torch.int64, device=self.device)
-        k2 = torch.arange(self.n2, dtype=torch.int64, device=self.device)
-        half = self.plan.itw if invert else self.plan.tw
-        full = torch.cat([half, mont.neg(FR, half)], dim=1)     # (L, n)
-        return full[:, (i1[:, None] * k2[None, :]).reshape(-1)].reshape(
-            FR.L, rows, self.n2)
+        n1/D, n2): the powers of each w^i1. Made at the first call and
+        kept (n/D words a direction). Not scaled by 1/n: the inverse
+        scales by 1/n2 and 1/n1 in its two transforms."""
+        key = (mesh.rank, mesh.size, invert)
+        if key not in self._tw:
+            rows = self.n1 // mesh.size
+            w = root_of_unity(self.log_n1 + self.log_n2)
+            if invert:
+                w = pow(w, -1, R_MOD)
+            first = pow(w, mesh.rank * rows, R_MOD)
+            w_i1 = poly.powers(FR, FR.scalar(w, self.device), rows,
+                               start=FR.scalar(first, self.device))
+            self._tw[key] = poly.powers(FR, w_i1, self.n2)
+        return self._tw[key]
 
 
-def four_step_plan(log_n, device):
-    """The square-as-can-be plan of size 2^log_n (n1 <= n2)."""
-    return FourStepPlan(log_n // 2, log_n - log_n // 2, device)
+def four_step_plan(log_n, device, swap=False):
+    """The square-as-can-be plan of size 2^log_n (n1 <= n2; n1 >= n2 with
+    `swap`)."""
+    a, b = log_n // 2, log_n - log_n // 2
+    return FourStepPlan(b, a, device) if swap else FourStepPlan(a, b, device)
 
 
-def _four_step(fsp, mesh, rows, invert):
-    """This rank's rows (L, B, n1/D, n2) -> its block of R, (L, B, n1,
-    n2/D)."""
+def _four_step(fsp, mesh, x, invert):
+    """This rank's columns (L, ..., n/D) of x in `Layout(n, n1)` -> its
+    columns of the transform in `Layout(n, n2)`."""
     if not fsp.fits(mesh):
         raise ValueError(f"a {fsp.n1} x {fsp.n2} four-step plan does not "
                          f"split over {mesh.size} ranks")
-    L, B = rows.shape[:2]
+    L, batch = x.shape[0], x.shape[1:-1]
     D, r, c = mesh.size, fsp.n1 // mesh.size, fsp.n2 // mesh.size
-    tw = fsp.twiddles(mesh, invert)
+    # local column i2*r + (i1 - rank*r) -> rows [i1, i2]
+    rows = x.reshape(L, -1, fsp.n2, r).transpose(-1, -2)
     # 1. length-n2 transforms along each local row (K5 per stage); the
     #    inverse folds in 1/n2 here
     b = ntt.transform_last(fsp.plan2, rows, invert)
     # 2. twiddles of these rows (K1)
-    b = mont.mont_mul(FR, b, tw[:, None])
+    b = mont.mont_mul(FR, b, fsp.twiddles(mesh, invert)[:, None])
     # 3. transpose across ranks: column block d of every row goes to rank
     #    d; afterwards stage[s] holds rank s's rows of this rank's columns
-    stage = b.reshape(L, B, r, D, c).permute(3, 0, 1, 2, 4).contiguous()
+    stage = b.reshape(L, -1, r, D, c).permute(3, 0, 1, 2, 4).contiguous()
+    del b
     recv = torch.empty_like(stage)
     dist.all_to_all_single(recv, stage, group=mesh.group)
+    del stage
     # (D, L, B, r, c) -> (L, B, c, n1), row i1 = s*r + local row
-    t = recv.permute(1, 2, 4, 0, 3).reshape(L, B, c, fsp.n1)
+    t = recv.permute(1, 2, 4, 0, 3).reshape(L, -1, c, fsp.n1)
+    del recv
     # 4. length-n1 transforms along i1 for each local column (1/n1)
-    return ntt.transform_last(fsp.plan1, t, invert).transpose(-1, -2)
+    out = ntt.transform_last(fsp.plan1, t, invert)
+    # [k2 - rank*c, k1] -> local column k1*c + (k2 - rank*c)
+    return out.transpose(-1, -2).reshape((L,) + batch + (fsp.n1 * c,))
 
 
-def _rows_of(fsp, mesh, x_rows):
-    """This rank's rows of a whole (L, ..., n1, n2) tensor, as (L, B,
-    n1/D, n2)."""
-    r = fsp.n1 // mesh.size
-    rows = x_rows.reshape(FR.L, -1, fsp.n1, fsp.n2)
-    return rows[:, :, mesh.rank * r:(mesh.rank + 1) * r]
+def _layouts(fsp, mesh):
+    return (Layout(fsp.n, fsp.n1, mesh.size, mesh.rank),
+            Layout(fsp.n, fsp.n2, mesh.size, mesh.rank))
+
+
+def four_step_ntt_sharded(fsp, mesh, x):
+    """NTT of this rank's columns x (L, ..., n/D) of `Layout(n, n1)`
+    (coefficients) -> its columns of `Layout(n, n2)` (evaluations); one
+    all_to_all_single, no gather."""
+    return _four_step(fsp, mesh, x, False)
+
+
+def four_step_intt_sharded(fsp, mesh, x):
+    """INTT, `Layout(n, n1)` (evaluations) -> `Layout(n, n2)`
+    (coefficients): the prover takes the plan with n1 and n2 swapped."""
+    return _four_step(fsp, mesh, x, True)
 
 
 def four_step_ntt(fsp, mesh, x_rows):
     """x_rows: (L, ..., n1, n2) with x[i1 + n1*i2] at [..., i1, i2], whole
     on every rank. Returns (L, ..., n1, n2) R with R[..., k1, k2] =
-    X[k2 + n2*k1], whole on every rank (each rank computes its n2/D
-    columns; one all-gather joins them)."""
-    out = _four_step(fsp, mesh, _rows_of(fsp, mesh, x_rows), False)
-    return gather_last(mesh, out).reshape(x_rows.shape)
+    X[k2 + n2*k1], whole on every rank (each rank computes its columns;
+    one all-gather joins them)."""
+    r = fsp.n1 // mesh.size
+    x = x_rows.reshape((FR.L, -1, fsp.n1, fsp.n2))[
+        :, :, mesh.rank * r:(mesh.rank + 1) * r].transpose(-1, -2)
+    out = four_step_ntt_sharded(fsp, mesh,
+                                x.reshape(FR.L, -1, fsp.n // mesh.size))
+    return Split(_layouts(fsp, mesh)[1], mesh).gather(out).reshape(
+        x_rows.shape)
 
 
 def four_step_intt_natural(fsp, mesh, evals):
     """Inverse transform with NATURAL order in and out: evals (L, ..., n)
     -> coefficients (L, ..., n), whole on every rank; the same words as
     `ops/ntt.intt`."""
-    n1, n2 = fsp.n1, fsp.n2
-    # rows[i1, i2] = evals[i1 + n1*i2]
-    r = n1 // mesh.size
-    rows = evals.reshape(FR.L, -1, n2, n1)[
-        ..., mesh.rank * r:(mesh.rank + 1) * r].transpose(-1, -2)
-    out = _four_step(fsp, mesh, rows, True)
-    return gather_last(mesh, out).reshape(evals.shape)
+    lay1, lay2 = _layouts(fsp, mesh)
+    out = four_step_intt_sharded(fsp, mesh, lay1.take(evals))
+    return Split(lay2, mesh).gather(out)
+
+
+class Columns:
+    """The columns of a prover of size 2^log_n that this rank of `mesh`
+    holds: `coef` and `evals`, the `Split`s of the coefficient and the
+    evaluation layout (see the header), and the transforms between them.
+    `sharded` is False with no mesh, or when a four-step side does not
+    split over its ranks: then both are the whole axis and the transforms
+    are `ops/ntt`'s radix-2 ones."""
+
+    def __init__(self, log_n, device, mesh=None):
+        self.log_n = log_n
+        self.n = n = 1 << log_n
+        self.device = device
+        fwd = four_step_plan(log_n, device) if mesh is not None else None
+        self.sharded = fwd is not None and fwd.fits(mesh)
+        self.mesh = mesh if self.sharded else None
+        if self.sharded:
+            self._fwd = fwd
+            # a square plan is its own swap: one set of twiddles
+            self._inv = fwd if fwd.n1 == fwd.n2 else \
+                four_step_plan(log_n, device, swap=True)
+            lay1, lay2 = _layouts(fwd, mesh)
+            self.coef, self.evals = Split(lay1, mesh), Split(lay2, mesh)
+            self.omega = root_of_unity(log_n)
+            self.n_inv = FR.scalar(pow(n, -1, R_MOD), device)
+        else:
+            self.plan = ntt.get_plan(log_n, device)
+            self.coef = self.evals = Split(Layout(n, n, 1, 0))
+            self.omega, self.n_inv = self.plan.omega, self.plan.n_inv
+
+    @property
+    def key(self):
+        """(n, size, rank): which columns these are; None when whole."""
+        return (self.n, self.mesh.size, self.mesh.rank) if self.sharded \
+            else None
+
+    def ntt(self, x):
+        """Coefficients (coef columns) -> evaluations (evals columns)."""
+        if not self.sharded:
+            return ntt.ntt(self.plan, x)
+        return four_step_ntt_sharded(self._fwd, self.mesh, x)
+
+    def intt(self, x):
+        """Evaluations (evals columns) -> coefficients (coef columns)."""
+        if not self.sharded:
+            return ntt.intt(self.plan, x)
+        return four_step_intt_sharded(self._inv, self.mesh, x)
+
+    def subcoset_tables(self):
+        """`ops/ntt.SubcosetTables` of this rank's columns (whole when not
+        sharded), cached per card."""
+        if not self.sharded:
+            return ntt.get_subcoset_tables(self.log_n, self.device)
+        return ntt.get_subcoset_tables(self.log_n, self.device,
+                                       self.coef.layout, self.evals.layout)
 
 
 def reference_four_step_check(fsp, coeffs):
@@ -396,10 +635,20 @@ def sharded_msm_windows(mesh, pts, raw_scalar_limbs, window_bits):
     n = raw_scalar_limbs.shape[-1]
     _require_split(mesh, n, "sharded_msm_windows")
     b = n // mesh.size
-    block = pts[mesh.rank * b:(mesh.rank + 1) * b]
-    raw = shard_last(mesh, raw_scalar_limbs)
-    wpts = torch.stack([msm.msm_windows(block, raw[:, i], window_bits)
-                        for i in range(raw.shape[1])], dim=1)
+    return msm_windows_over_ranks(
+        mesh, pts[mesh.rank * b:(mesh.rank + 1) * b],
+        shard_last(mesh, raw_scalar_limbs), window_bits)
+
+
+def msm_windows_over_ranks(mesh, pts, raw_scalar_limbs, window_bits):
+    """The window points (4L, B, W) of B MSMs whose points and scalars are
+    split over the ranks: this rank's points pts (m, 24) and its raw
+    scalar limbs (16, B, m) of the same columns. `msm.msm_windows` on the
+    rank's share; the window points are all-gathered and added in rank
+    order, the same words on every rank."""
+    wpts = torch.stack([msm.msm_windows(pts, raw_scalar_limbs[:, i],
+                                        window_bits)
+                        for i in range(raw_scalar_limbs.shape[1])], dim=1)
     return _sum_over_ranks(mesh, wpts)
 
 

@@ -15,8 +15,15 @@ Both lookup branches are here: a key whose q_lookup and table are all zero
 identity commitments); any other key runs the real plookup rounds.
 General circuits enter through `DevProverKey.from_ref` (a spec
 `ref/prover.preprocess` key) and `ProverWitness.from_composer`.
+
+With a mesh (`ProverConfig.mesh`) every rank holds only its columns of
+each n-length tensor (`parallel/mesh.Columns`) and runs every round on
+them; each step that needs the other ranks' columns names its collective
+there. The key, witness and SRS are sharded by their `shard` methods, by
+the caller (who then frees the whole) or on entry to `prove_torch`.
 """
 
+import copy
 import time
 
 import numpy as np
@@ -28,7 +35,6 @@ from ..fields import mont, kernels
 from .. import native
 from ..fields.mont import FR
 from ..fields.frvec import FV
-from ..ops import ntt as tntt
 from ..ops import poly as tpoly
 from ..ops import msm as tmsm
 from ..curve import g1
@@ -61,15 +67,17 @@ class ProverConfig:
     element to the host and logs its seconds (an attributable breakdown,
     at the cost of one sync per round).
     mesh: optional `parallel.mesh.Mesh`; every rank of it calls
-    `prove_torch` with the same inputs. The round-1 wire INTT then runs as
-    a four-step transform split over the ranks, and each commitment's MSM
-    is split over them by points (when n splits evenly, the condition of
-    `prover_tpu.commit_batch`). The device is the rank's.
-
-    The JAX prover's `mesh` also shards the key, the witness and the
-    tables along n and lets XLA partition every round program. PyTorch has
-    no such partitioner: here the other round programs run whole on every
-    rank, so the mesh splits work but not memory."""
+    `prove_torch` with the same inputs, whole or sharded by their `shard`
+    methods. The device is the rank's. When both sides of n's four-step
+    plan split over the ranks, each rank holds n/D columns of the key, the
+    witness, the SRS, the tables and every intermediate of rounds 1-5 (the
+    layouts: `parallel/mesh.py`'s header): the transforms are four-step
+    ones with one all_to_all each, the MSMs run on the rank's points, and
+    the scans, the next gate and the evaluations join the ranks by small
+    all-gathers. The proof is the same bytes on every rank and equals the
+    unmeshed one. Otherwise every rank proves whole, each MSM split over
+    the ranks by points when n splits evenly (the JAX package's
+    replicated case, `prover_tpu.py:109-115`)."""
 
     def __init__(self, device=None, impl="kernel", log=None,
                  msm_backend="device", msm_window_bits=None, mesh=None):
@@ -100,11 +108,26 @@ class DevSRS:
     carries h / beta_h for the verifier (and powers_of_g when built by
     `from_ref`, which the host MSM backend reads)."""
 
+    shard_of = None
+
     def __init__(self, points, ref):
         self.points = points
         self.packed = g1.pack_affine(points[0], points[1])
         self.ref = ref
         self.size = points[0].shape[1]
+
+    def shard(self, mesh, n):
+        """This rank's share of the first n points for a prover of size n:
+        the points its coefficient columns meet (`Columns.coef`), and
+        their point-major copy. Returns self when n does not split over
+        the mesh."""
+        cols = pmesh.Columns(n.bit_length() - 1, mesh.device, mesh)
+        if not cols.sharded:
+            return self
+        out = DevSRS(tuple(cols.coef.take(p[..., :n]) for p in self.points),
+                     self.ref)
+        out.shard_of = cols.key
+        return out
 
     @classmethod
     def from_ref(cls, srs, device=None):
@@ -127,6 +150,8 @@ class DevProverKey:
     int32 on the device."""
 
     lookup_degenerate = False
+    # `parallel.mesh.Columns.key` of the columns held; None when whole
+    shard_of = None
 
     @classmethod
     def from_ref(cls, pk, device=None):
@@ -148,16 +173,59 @@ class DevProverKey:
     def q_lookup_zero_mask(self, cs, n):
         return _is_zero_col(cs.q_lookup, n, self.sel_poly["q_m"].device)
 
+    def shard(self, mesh):
+        """A key holding this rank's columns of every tensor: the
+        coefficient layout for the selector and sigma polys, the
+        evaluation layout for the sigma evaluations and the table columns
+        (`parallel/mesh.Columns`). Returns self when n does not split."""
+        cols = pmesh.Columns(self.log_n, mesh.device, mesh)
+        if not cols.sharded:
+            return self
+        taken = {}
+
+        def take(split, t):
+            # a tensor the key holds twice (the zero table column) is
+            # cut once
+            if id(t) not in taken:
+                taken[id(t)] = split.take(t)
+            return taken[id(t)]
+
+        out = copy.copy(self)
+        out.sel_poly = {k: take(cols.coef, v)
+                        for k, v in self.sel_poly.items()}
+        out.sigma_poly = [take(cols.coef, v) for v in self.sigma_poly]
+        out.sigma_evals_n = [take(cols.evals, v) for v in self.sigma_evals_n]
+        out.table_cols = [take(cols.evals, v) for v in self.table_cols]
+        out.shard_of = cols.key
+        return out
+
 
 class ProverWitness:
     """Wire value columns in evaluation form ((L, n) Montgomery tensors),
     sparse public inputs {gate: value}, and the (n,) q_lookup == 0 mask
     (needed by keys with a real lookup table)."""
 
+    shard_of = None
+
     def __init__(self, wires_dev, public_inputs, q_lookup_zero_mask=None):
         self.wires_dev = wires_dev
         self.public_inputs = public_inputs
         self.q_lookup_zero_mask = q_lookup_zero_mask
+
+    def shard(self, mesh):
+        """This rank's columns (`Columns.evals`) of the wires and the mask;
+        the public inputs stay as they are (gate numbers). Returns self
+        when n does not split."""
+        n = self.wires_dev[0].shape[-1]
+        cols = pmesh.Columns(n.bit_length() - 1, mesh.device, mesh)
+        if not cols.sharded:
+            return self
+        mask = self.q_lookup_zero_mask
+        out = ProverWitness([cols.evals.take(w) for w in self.wires_dev],
+                            self.public_inputs,
+                            None if mask is None else cols.evals.take(mask))
+        out.shard_of = cols.key
+        return out
 
     @classmethod
     def from_composer(cls, cs, n, device=None):
@@ -179,17 +247,28 @@ class ProverWitness:
 def commit_batch(dev_srs, polys, cfg):
     """KZG-commit (L, B, n) Montgomery coefficient polys -> B host affine
     points. The window points of all B polys are folded together on the
-    device, and the B commitments come to the host in one copy. With a
-    mesh whose size divides n, each rank computes the window points of its
-    block of points and scalars and the ranks' window points are added
-    before the fold."""
-    n = polys.shape[2]
+    device, and the B commitments come to the host in one copy.
+
+    With a sharded SRS (`DevSRS.shard`) the polys are this rank's columns
+    (L, B, n/D) and the points those they meet: each rank sums its own
+    share into window points, which are all-gathered and added in rank
+    order. With a whole SRS and a mesh whose size divides n, each rank
+    takes its block of the points and of the whole polys' scalars (the
+    JAX package's `_commit_batch_mesh_jit`)."""
+    sharded = dev_srs.shard_of is not None
+    n = polys.shape[2] * (cfg.mesh.size if sharded else 1)
     if cfg.msm_backend == "host":
+        if sharded:
+            polys = pmesh.Columns(n.bit_length() - 1, cfg.device,
+                                  cfg.mesh).coef.gather(polys)
         return [ref_kzg.commit(dev_srs.ref, FR.from_mont_host(polys[:, b]))
                 for b in range(polys.shape[1])]
     wb = cfg.msm_window_bits or tmsm.auto_window_bits(n)
     raw = mont.from_mont(FR, polys)
-    if cfg.mesh is not None and n % cfg.mesh.size == 0:
+    if sharded:
+        wpts = pmesh.msm_windows_over_ranks(cfg.mesh, dev_srs.packed, raw,
+                                            wb)
+    elif cfg.mesh is not None and n % cfg.mesh.size == 0:
         wpts = pmesh.sharded_msm_windows(cfg.mesh, dev_srs.packed, raw, wb)
     else:
         wpts = torch.stack([tmsm.msm_windows(dev_srs.packed, raw[:, b], wb)
@@ -207,11 +286,13 @@ def commit(dev_srs, poly_mont, cfg):
 # round programs
 # ---------------------------------------------------------------------------
 
-def _z_parts(roots, wires, sigma_evals, f, tcol, h1, h2, beta, gamma,
+def _z_parts(cols, roots, wires, sigma_evals, f, tcol, h1, h2, beta, gamma,
              delta, eps):
     """Numerators/denominators + denominator totals of the two grand
-    products; f, tcol, h1, h2 are the lookup columns in evaluation form
-    (all zero for a degenerate lookup)."""
+    products on this rank's evaluation columns; f, tcol, h1, h2 are the
+    lookup columns in evaluation form (all zero for a degenerate lookup).
+    The totals are of this rank's columns: the inverse of each is all
+    that `mont.inv_apply` needs here."""
     betaF, gammaF = FV(beta[:, None]), FV(gamma[:, None])
     rootsF = FV(roots)
     ks = [FV.const(k) for k in (1, K1, K2, K3)]
@@ -230,32 +311,33 @@ def _z_parts(roots, wires, sigma_evals, f, tcol, h1, h2, beta, gamma,
     eps_opd = epsF * opd
     fv, tv, h1v, h2v = FV(f), FV(tcol), FV(h1), FV(h2)
     deltaF = FV(delta[:, None])
-    # FV.roll(1) is the next gate: element i of t_next is t[i + 1]
-    num2 = opd * (epsF + fv) * (eps_opd + tv + deltaF * tv.roll(1))
+    # the next gate: element i of t_next is t[i + 1]
+    t_next = FV(cols.evals.shift(tcol, 1))
+    h1_next = FV(cols.evals.shift(h1, 1))
+    num2 = opd * (epsF + fv) * (eps_opd + tv + deltaF * t_next)
     den2 = (eps_opd + h1v + h2v * deltaF) * \
-        (eps_opd + h2v + h1v.roll(1) * deltaF)
+        (eps_opd + h2v + h1_next * deltaF)
     tot_z = mont.prod_tree_total(FR, denv.v)
     tot_2 = mont.prod_tree_total(FR, den2.v)
     return numv.v, denv.v, tot_z, num2.v, den2.v, tot_2
 
 
-def _z_finish(plan, num, den, inv_total):
+def _z_finish(cols, num, den, inv_total):
     """ratios -> shifted prefix product -> INTT (z / z2 polynomial)."""
     dinv = mont.inv_apply(FR, den, inv_total)
     ratios = mont.mont_mul(FR, num, dinv)
-    evals = tpoly.prefix_product(FR, ratios, shift_one=True)
-    return tntt.intt(plan, evals)
+    return cols.intt(cols.evals.prefix_product(FR, ratios))
 
 
-def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
-    """quotient_poly.rs compute(), one sub-coset at a time. All inputs are
-    coefficient-form (L, n); lookup is (f, t, h1, h2), None for a
-    degenerate lookup; ch maps names to (L,) challenges. Returns the 8
-    quotient chunk polys (L, 8, n)."""
+def _quotient(cols, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
+    """quotient_poly.rs compute(), one sub-coset at a time, on this rank's
+    columns. All inputs are coefficient-form (L, n); lookup is (f, t, h1,
+    h2), None for a degenerate lookup; ch maps names to (L,) challenges.
+    Returns the 8 quotient chunk polys (L, 8, n)."""
     n = wl.shape[-1]
     L = FR.L
     dev = wl.device
-    l1c = plan.n_inv[:, None].expand(L, n)
+    l1c = cols.n_inv[:, None].expand(L, n)
     base = [wl, wr, wo, w4, z, z2, pi, l1c]
     if lookup is not None:
         base += list(lookup)
@@ -278,7 +360,7 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
         shift_inv = sct.shift_inv_pows[:, j]
 
         def evals(st):
-            return tntt.ntt(plan, mont.mont_mul(FR, st, shift[:, None, :]))
+            return cols.ntt(mont.mont_mul(FR, st, shift[:, None, :]))
 
         E = evals(base_st)
 
@@ -286,7 +368,8 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
             return FV(E[:, i])
 
         def nxt(i):
-            return FV(torch.roll(E[:, i], -1, dims=-1))
+            # the next gate
+            return FV(cols.evals.shift(E[:, i], 1))
 
         a, b, cw, d = ev(0), ev(1), ev(2), ev(3)
         a_n, b_n, d_n = nxt(0), nxt(1), nxt(3)
@@ -322,7 +405,7 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
 
         Eg = evals(sigma_st)
         sig = [FV(Eg[:, i]) for i in range(4)]
-        xF = FV(mont.mont_mul(FR, shift[:, 1:2], roots))
+        xF = FV(mont.mont_mul(FR, sct.shift_scalars[:, j:j + 1], roots))
         alpha = c("alpha")
         l1_alpha_sq = l1F * alpha * alpha
         perm = W.permutation_quotient_term(
@@ -354,7 +437,7 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
 
         numer = gate + perm + lkp
         Q = mont.mont_mul(FR, numer.v, sct.vh_inv[:, j:j + 1])
-        D = mont.mont_mul(FR, tntt.intt(plan, Q), shift_inv)
+        D = mont.mont_mul(FR, cols.intt(Q), shift_inv)
         contrib = mont.mont_mul(FR, D[:, None, :],
                                 sct.combine_c[:, :, j][:, :, None])
         acc = mont.add(FR, acc, contrib)
@@ -362,11 +445,11 @@ def _quotient(plan, sct, pk, wl, wr, wo, w4, z, z2, pi, lookup, ch):
     return acc
 
 
-def _eval_at(stack, point):
-    """Evaluate K polys (L, K, n) at one point (L,) -> (L, K)."""
-    n = stack.shape[-1]
-    pows = tpoly.powers(FR, point, n)
-    return tpoly.sum_last(FR, mont.mont_mul(FR, stack, pows[:, None, :]))
+def _eval_at(cols, stack, point):
+    """Evaluate K polys (L, K, n) at one point (L,) -> (L, K): the rank's
+    columns against its powers of the point, summed over the ranks."""
+    pows = cols.coef.powers(FR, point)
+    return cols.coef.sum(FR, mont.mont_mul(FR, stack, pows[:, None, :]))
 
 
 def _lincomb(stack, coeffs):
@@ -375,11 +458,10 @@ def _lincomb(stack, coeffs):
     return tpoly.sum_last(FR, prods.transpose(1, 2))
 
 
-def _open(stack, coeffs, point):
+def _open(cols, stack, coeffs, point):
     """chi-aggregation + synthetic division by (X - point), padded back to
-    n coefficients."""
-    q, _ = tpoly.divide_linear(FR, _lincomb(stack, coeffs), point)
-    return torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+    n coefficients (the padding column is the rank's that holds n-1)."""
+    return cols.coef.divide(FR, _lincomb(stack, coeffs), point)
 
 
 # ---------------------------------------------------------------------------
@@ -430,35 +512,40 @@ def _combine_split(compressed_t, compressed_f):
     return back(h1b), back(h2b)
 
 
-def _lookup_round(plan, dev_pk, witness, zeta):
+def _lookup_round(cols, dev_pk, witness, zeta):
     """Round 2 with a real table: compressed t and f (f takes t's first
     row where q_lookup == 0), h1/h2 by combine_split. Returns evaluations
-    (f, t, h1, h2) and polynomials (f, t, h1, h2)."""
+    (f, t, h1, h2) and polynomials (f, t, h1, h2), the rank's columns.
+    The host's combine_split needs whole columns: the compressed ones are
+    gathered, and each rank keeps its columns of h1 and h2."""
     mask = witness.q_lookup_zero_mask
     tc = [FV(c) for c in dev_pk.table_cols]
     compressed_t = W.lc4(tc[0], tc[1], tc[2], tc[3], zeta).v
+    whole_t = cols.evals.gather(compressed_t)
     w = witness.wires_dev
     m = mask[None]
     zero = torch.zeros_like(compressed_t)
-    f_cols = [torch.where(m, compressed_t[:, :1].expand_as(compressed_t),
+    f_cols = [torch.where(m, whole_t[:, :1].expand_as(compressed_t),
                           w[0])] + [torch.where(m, zero, x) for x in w[1:]]
     compressed_f = W.lc4(*[FV(c) for c in f_cols], zeta).v
-    h_1, h_2 = _combine_split(compressed_t, compressed_f)
-    polys = tntt.intt(plan, torch.stack(
+    h_1, h_2 = (cols.evals.take(h) for h in _combine_split(
+        whole_t, cols.evals.gather(compressed_f)))
+    del whole_t
+    polys = cols.intt(torch.stack(
         [compressed_f, compressed_t, h_1, h_2], dim=1))
     return ((compressed_f, compressed_t, h_1, h_2),
             tuple(polys[:, i] for i in range(4)))
 
 
-def _wire_intt(plan, evals, cfg):
-    """Round 1's INTT of the wire and public-input columns: a four-step
-    transform split over the mesh's ranks where its rows and columns
-    split evenly, else the radix-2 one; the same words either way."""
-    if cfg.mesh is not None:
-        fsp = pmesh.four_step_plan(plan.log_n, cfg.device)
-        if fsp.fits(cfg.mesh):
-            return pmesh.four_step_intt_natural(fsp, cfg.mesh, evals)
-    return tntt.intt(plan, evals)
+def _on_columns(obj, cols, mesh, *args):
+    """The key, witness or SRS `obj` as this rank's columns: sharded here
+    if it is whole, checked if it is sharded already."""
+    if obj.shard_of == cols.key:
+        return obj
+    if obj.shard_of is None:
+        return obj.shard(mesh, *args)
+    raise ValueError(f"{type(obj).__name__} holds the columns (n, size, "
+                     f"rank) {obj.shard_of}, not {cols.key}")
 
 
 def _prove(witness, dev_pk, dev_srs, transcript, cfg):
@@ -468,8 +555,16 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     dev = cfg.device
     n = dev_pk.n
     log_n = dev_pk.log_n
-    plan = tntt.get_plan(log_n, dev)
-    sct = tntt.get_subcoset_tables(log_n, dev)
+    cols = pmesh.Columns(log_n, dev, cfg.mesh)
+    if cols.sharded:
+        dev_pk = _on_columns(dev_pk, cols, cfg.mesh)
+        witness = _on_columns(witness, cols, cfg.mesh)
+        dev_srs = _on_columns(dev_srs, cols, cfg.mesh, n)
+    elif {dev_pk.shard_of, witness.shard_of, dev_srs.shard_of} != {None}:
+        raise ValueError("sharded inputs need the mesh they were sharded "
+                         "over (ProverConfig.mesh)")
+    width = cols.coef.layout.width
+    sct = cols.subcoset_tables()
     t = transcript
     mark = _round_marker(cfg)
 
@@ -479,16 +574,16 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     t.append_pi(b"pi", witness.public_inputs)
 
     # ------------------------------------------------------------- round 1
-    pi_col = torch.zeros((FR.L, n), dtype=torch.int32, device=dev)
-    if witness.public_inputs:
-        pos = torch.tensor(list(witness.public_inputs.keys()),
-                           dtype=torch.int64, device=dev)
-        vals = FR.tensor([v % M for v in witness.public_inputs.values()],
-                         dev)
-        pi_col[:, pos] = vals
+    pi_col = torch.zeros((FR.L, width), dtype=torch.int32, device=dev)
+    local = {cols.evals.layout.local(g): v % M
+             for g, v in witness.public_inputs.items()}
+    local.pop(None, None)
+    if local:
+        pos = torch.tensor(list(local), dtype=torch.int64, device=dev)
+        pi_col[:, pos] = FR.tensor(list(local.values()), dev)
     wires5 = torch.stack(list(witness.wires_dev) + [pi_col], dim=1)
     wires = wires5[:, :4]
-    polys5 = _wire_intt(plan, wires5, cfg)
+    polys5 = cols.intt(wires5)
     wire_polys, pi_poly = polys5[:, :4], polys5[:, 4]
     w_comms = commit_batch(dev_srs, wire_polys, cfg)
     for label, c in zip((b"w_l", b"w_r", b"w_o", b"w_4"), w_comms):
@@ -499,7 +594,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     # ------------------------------------------------------------- round 2
     zeta_i = t.challenge_scalar(b"zeta")
     t.append_fr(b"zeta", zeta_i)
-    zero_poly = torch.zeros((FR.L, n), dtype=torch.int32, device=dev)
+    zero_poly = torch.zeros((FR.L, width), dtype=torch.int32, device=dev)
     if dev_pk.lookup_degenerate:
         # all-zero table & q_lookup: f = t = h1 = h2 = 0 and their
         # commitments are the identity (gen_proof.cuh:107-115 shortcut)
@@ -509,7 +604,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
         f_comm = h_1_comm = h_2_comm = None
     else:
         lookup_evals, lookup_polys = _lookup_round(
-            plan, dev_pk, witness, FV.const(zeta_i))
+            cols, dev_pk, witness, FV.const(zeta_i))
         f_poly, table_poly, h_1_poly, h_2_poly = lookup_polys
         f_comm, h_1_comm, h_2_comm = commit_batch(
             dev_srs, torch.stack([f_poly, h_1_poly, h_2_poly], dim=1), cfg)
@@ -531,11 +626,11 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
 
     sigma_evals = torch.stack(dev_pk.sigma_evals_n, dim=1)
     num_z, den_z, tot_z, num_2, den_2, tot_2 = _z_parts(
-        sct.roots, wires, sigma_evals, *lookup_evals, scal(beta_i),
+        cols, sct.roots, wires, sigma_evals, *lookup_evals, scal(beta_i),
         scal(gamma_i), scal(delta_i), scal(epsilon_i))
     del lookup_evals
-    z_poly = _z_finish(plan, num_z, den_z, mont.host_inverse(FR, tot_z))
-    z_2_poly = _z_finish(plan, num_2, den_2, mont.host_inverse(FR, tot_2))
+    z_poly = _z_finish(cols, num_z, den_z, mont.host_inverse(FR, tot_z))
+    z_2_poly = _z_finish(cols, num_2, den_2, mont.host_inverse(FR, tot_2))
     del num_z, den_z, num_2, den_2
     z_comm, z_2_comm = commit_batch(
         dev_srs, torch.stack([z_poly, z_2_poly], dim=1), cfg)
@@ -561,7 +656,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
           "epsilon": scal(epsilon_i), "zeta": scal(zeta_i),
           "range": scal(range_i), "logic": scal(logic_i),
           "fbsm": scal(fbsm_i), "ca": scal(ca_i), "lookup": scal(lookup_i)}
-    t_stack = _quotient(plan, sct, dev_pk, wire_polys[:, 0],
+    t_stack = _quotient(cols, sct, dev_pk, wire_polys[:, 0],
                         wire_polys[:, 1], wire_polys[:, 2], wire_polys[:, 3],
                         z_poly, z_2_poly, pi_poly, lookup_polys, ch)
     mark("round4 quotient", t_stack)
@@ -573,7 +668,7 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
     # ------------------------------------------------------------- round 5
     z_ch_i = t.challenge_scalar(b"z")
     t.append_fr(b"z", z_ch_i)
-    shifted_i = z_ch_i * plan.omega % M
+    shifted_i = z_ch_i * cols.omega % M
 
     sp = dev_pk.sel_poly
     at_z_polys = [wire_polys[:, 0], wire_polys[:, 1], wire_polys[:, 2],
@@ -585,8 +680,9 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
                   h_1_poly, h_2_poly, f_poly, table_poly]
     at_sz_polys = [z_poly, wire_polys[:, 0], wire_polys[:, 1],
                    wire_polys[:, 3], z_2_poly, h_1_poly, table_poly]
-    evs_z = _eval_at(torch.stack(at_z_polys, dim=1), scal(z_ch_i))
-    evs_sz = _eval_at(torch.stack(at_sz_polys, dim=1), scal(shifted_i))
+    evs_z = _eval_at(cols, torch.stack(at_z_polys, dim=1), scal(z_ch_i))
+    evs_sz = _eval_at(cols, torch.stack(at_sz_polys, dim=1),
+                      scal(shifted_i))
     ints = FR.from_mont_host(torch.cat([evs_z, evs_sz], dim=1))
     (a_eval, b_eval, c_eval, d_eval, ls_eval, rs_eval, os_eval, q_arith_eval,
      q_lookup_eval, q_c_eval, q_l_eval, q_r_eval, q_hl_eval, q_hr_eval,
@@ -705,15 +801,15 @@ def _prove(witness, dev_pk, dev_srs, transcript, cfg):
                 wire_polys[:, 0], wire_polys[:, 1], wire_polys[:, 2],
                 wire_polys[:, 3]]
     aw_chis = [pow(aw_i, k, M) for k in range(len(aw_polys))]
-    aw_q = _open(torch.stack(aw_polys, dim=1), FR.tensor(aw_chis, dev),
-                 scal(z_ch_i))
+    aw_q = _open(cols, torch.stack(aw_polys, dim=1),
+                 FR.tensor(aw_chis, dev), scal(z_ch_i))
 
     saw_i = t.challenge_scalar(b"aggregate_witness")
     saw_polys = [z_poly, wire_polys[:, 0], wire_polys[:, 1],
                  wire_polys[:, 3], h_1_poly, z_2_poly, table_poly]
     saw_chis = [pow(saw_i, k, M) for k in range(len(saw_polys))]
-    saw_q = _open(torch.stack(saw_polys, dim=1), FR.tensor(saw_chis, dev),
-                  scal(shifted_i))
+    saw_q = _open(cols, torch.stack(saw_polys, dim=1),
+                  FR.tensor(saw_chis, dev), scal(shifted_i))
 
     mark("openings (2 divisions)", saw_q)
     aw_opening, saw_opening = commit_batch(
