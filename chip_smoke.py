@@ -58,8 +58,15 @@ seconds when it ends:
            SRS, frees the whole and proves: every rank's proof must equal
            the main proof, and verify; the bytes resident before that
            prove and its max_memory_allocated are reported per rank. Then
-           entry.dryrun_multichip over the cards, and with several cards
-           prove_many with one replica a card. Listed with main it changes
+           entry.dryrun_multichip over the cards; the sharded prover at
+           an odd log n (h6, n = 2^13, the four-step sides 64 and 128,
+           so the INTT takes the swapped plan) at world size 1 in this
+           process and, with the cards, at 2 and 4 spawned ranks, every
+           rank's proof equal to the whole h6 proof; and with several
+           cards prove_many over them (4 proofs a card), one process a
+           card, timed beside the thread design it replaced, with each
+           process's start-up seconds and each prove's host CPU
+           seconds. Listed with main it changes
            nothing (main runs it); listed without main it is a rehearsal
            of the mesh phase: the main path's set-up, prove and verify,
            then the mesh phase, and nothing else of main (no prove_many
@@ -131,6 +138,11 @@ NOT_LAUNCHED = {
     "prove_many": OFF_PATH + ("xyzz_add_affine2",),
     # one rank's sharded prove: no device_srs either
     "sharded": OFF_PATH + ("xyzz_add_affine2",),
+    # one rank's sharded prove at h6 (n = 2^13), whose MSM buckets need
+    # not outgrow msm.CHUNK
+    "sharded_h6": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
+    # prove_many's processes, one a card, added up
+    "prove_many_cards": OFF_PATH + ("xyzz_add_affine2",),
     "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
     # the set-up's or the dry run's device_srs launches xyzz_add_affine2
     "mesh": OFF_PATH,
@@ -1016,21 +1028,29 @@ def gen_proof(height, impls=("kernel",), timed=False, profile=False,
     return proofs, secs
 
 
+# proofs a card of prove_many over several cards: enough that the
+# processes' start-up does not hide the proving
+MANY_PER_CARD = 4
+
+
 def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
                 counts, devices=(0,)):
     """Path (b): prove_many over the main witness and one with other
-    seeded leaves, one proof at a time on device 0's thread; the first
-    proof must equal the main proof and both must verify. `counts`
-    receives the kernel launches of the prove_many call alone. With
-    several `devices` (card numbers) the two witnesses alternate over
-    2 x len(devices) proofs, proof i on card i % len(devices) in that
-    card's thread against its replica of the key and SRS: each proof of
-    the main witness must equal the main proof, each of the other the
-    first of them. Returns the emitted summary."""
+    seeded leaves, proof i of witness i % 2. On one card (`devices`
+    (0,)): two proofs, in this process. On several: MANY_PER_CARD x
+    len(devices) proofs, proof i in card i % len(devices)'s process
+    against its replica of the key and SRS; then the same proofs through
+    the thread design that prove_many had before (`_prove_many_threads`),
+    timed beside it and held to the same bytes. Every proof of the main
+    witness must equal the main proof, those of the other witness one
+    another, and one of each verifies. `counts` receives the kernel
+    launches of the prove_many call alone (its processes' on several
+    cards). Returns the emitted summary."""
     import torch
     from zprize_tpu_torch.params import R_MOD
     from zprize_tpu_torch.fields import kernels
     from zprize_tpu_torch.fields.mont import FR
+    from zprize_tpu_torch.ops import ntt
     from zprize_tpu_torch.protocol import prover_torch as pt
     from zprize_tpu_torch.protocol.batch import prove_many
     from zprize_tpu_torch.protocol.serde import serialize_proof
@@ -1041,22 +1061,32 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
 
     from zprize_tpu_torch.tools.merkle_setup import seeded_leaves
     h = lay.height
-    with Phase(f"h{h}.prove_many"):
+    cards = len(devices)
+    with Phase(f"h{h}.prove_many" + (f"_{cards}cards" if cards > 1 else "")):
         leaves = FR.tensor(seeded_leaves(lay.m_leaves, h + 1000), "cuda")
         wires2, root2, _ = lay.witness(leaves)
         pis = [pi, {lay.root_gate_pos: (-root2) % R_MOD}]
         witnesses = [pt.ProverWitness(wires, pis[0]),
                      pt.ProverWitness(wires2, pis[1])]
-        if len(devices) > 1:
-            witnesses = witnesses * len(devices)
+        if cards > 1:
+            witnesses = witnesses * (MANY_PER_CARD * cards // 2)
+            # the processes share card 0 with this one: hand back the
+            # whole tables and what the allocator caches
+            ntt.clear_caches()
         base = TranscriptProtocol(b"Merkle tree")
         seed_transcript(base, vk)
         torch.cuda.synchronize()
         kernels.reset_counts()
+        stats = []
         proofs, wall, pps = prove_many(
             witnesses, pk, dev_srs, base, pt.ProverConfig(device="cuda"),
-            devices=[torch.device("cuda", d) for d in devices])
-        counts.update(kernels.COUNTS)
+            devices=[torch.device("cuda", d) for d in devices], stats=stats)
+        if cards > 1:
+            for one in stats:
+                for k, v in one.pop("launches").items():
+                    counts[k] = counts.get(k, 0) + v
+        else:
+            counts.update(kernels.COUNTS)
         got = [serialize_proof(p) for p in proofs]
         if got[0::2] != [first_bytes] * len(got[0::2]):
             raise AssertionError("a prove_many proof of the main witness "
@@ -1064,16 +1094,83 @@ def _prove_many(lay, pk, vk, dev_srs, lite, wires, pi, first_bytes,
         if len(set(got[1::2])) != 1:
             raise AssertionError("prove_many's proofs of one witness "
                                  "differ")
-        for proof, p in zip(proofs, pis):
+        # every other proof is byte-equal to one of these two
+        for proof, p in zip(proofs[:2], pis):
             vtr = TranscriptProtocol(b"Merkle tree")
             seed_transcript(vtr, vk)
             if not verify(vk, lite, proof, p, vtr):
                 raise AssertionError("a prove_many proof does not verify")
-    out = {"height": h, "proofs": len(proofs), "cards": len(devices),
+        del proofs
+        threads = None
+        if cards > 1:
+            threads = _prove_many_threads(witnesses, pk, dev_srs, base,
+                                          devices)
+            if threads.pop("proofs") != got:
+                raise AssertionError("the thread design's proofs differ "
+                                     "from prove_many's")
+    out = {"height": h, "proofs": len(got), "cards": cards,
            "wall_s": wall, "proofs_per_s": pps, "first_equals_main": True,
            "verify": "PASS"}
+    if cards > 1:
+        start = [one["start_s"] for one in stats]
+        out.update(
+            design="one process a card", per_card=stats,
+            start_s=start,
+            # the proving alone: from the last process's start to the end
+            proofs_per_s_after_start=len(got) / (wall - max(start)),
+            threads=threads,
+            speedup_over_threads=threads["wall_s"] / wall)
     emit({"prove_many": dict(out, launches=dict(counts))})
     return out
+
+
+def _prove_many_threads(witnesses, dev_pk, dev_srs, base, devices):
+    """prove_many's earlier design, kept here only to be timed beside
+    the one with a process a card in the same call: one thread a card,
+    each proving its witnesses i = k (mod cards) in order against its
+    replica of the key and SRS. Returns the proof bytes, the wall, the
+    proofs a second, and for each thread the wall and the host CPU
+    seconds (time.thread_time) of each prove_torch call, with the CPU
+    seconds of this whole process (time.process_time) beside the wall:
+    a thread held back by the interpreter lock waits off the CPU, while
+    the CUDA synchronizations spin on it."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from zprize_tpu_torch.protocol import prover_torch as pt
+    from zprize_tpu_torch.protocol.batch import _replica
+    from zprize_tpu_torch.protocol.serde import serialize_proof
+
+    devs = [torch.device("cuda", d) for d in devices]
+    D = len(devs)
+    proofs = [None] * len(witnesses)
+    per = [{"device": str(d), "prove_s": [], "cpu_s": []} for d in devs]
+    torch.cuda.synchronize()
+    t0, c0 = time.time(), time.process_time()
+    pks = [_replica(dev_pk, d) for d in devs]
+    srss = [_replica(dev_srs, d) for d in devs]
+
+    def run(k):
+        with torch.cuda.device(devs[k]):
+            cfg = pt.ProverConfig(device=devs[k])
+            for i in range(k, len(witnesses), D):
+                w = _replica(witnesses[i], devs[k])
+                t, c = time.time(), time.thread_time()
+                proofs[i] = serialize_proof(pt.prove_torch(
+                    w, pks[k], srss[k], base.clone(), cfg))
+                per[k]["prove_s"].append(time.time() - t)
+                per[k]["cpu_s"].append(time.thread_time() - c)
+
+    with ThreadPoolExecutor(max_workers=D) as ex:
+        for f in [ex.submit(run, k) for k in range(D)]:
+            f.result()
+    wall = time.time() - t0
+    cpu = time.process_time() - c0
+    del pks, srss
+    return {"proofs": proofs, "wall_s": wall,
+            "proofs_per_s": len(witnesses) / wall, "per_card": per,
+            "process_cpu_s": cpu,
+            "thread_cpu_share": [sum(p["cpu_s"]) / sum(p["prove_s"])
+                                 for p in per]}
 
 
 MESH_SEED = 20261019
@@ -1136,7 +1233,7 @@ def _mesh_rank(mesh, height, setup=None):
     del R, co, rows
     # the prover's transforms: the rank's columns in and out, no gather
     cols = pmesh.Columns(log_n, dev, mesh)
-    sharded = {}
+    sharded, plans = {}, {}
     if cols.sharded:
         c_part, e_part = cols.coef.take(coeffs), cols.evals.take(evals)
         sharded["ntt_ms"], got = time_ms(lambda: cols.ntt(c_part), 5)
@@ -1144,6 +1241,13 @@ def _mesh_rank(mesh, height, setup=None):
         sharded["intt_ms"], got = time_ms(lambda: cols.intt(e_part), 5)
         _same("sharded intt", got, c_part)
         del c_part, e_part, got
+        # at odd log n the two layouts differ and the INTT runs on the
+        # plan with n1 and n2 swapped; its twiddles exist once it ran
+        fwd, inv = cols._fwd, cols._inv
+        plans = {"ntt_plan": [fwd.n1, fwd.n2], "intt_plan": [inv.n1, inv.n2],
+                 "layouts_differ": cols.coef.layout != cols.evals.layout,
+                 "swapped_intt_ran": inv is not fwd and any(
+                     k[2] for k in inv._tw)}
     # one window of seeded digits, as wide as the prover's windows at this
     # n (16 bits at h15); its reference is msm.msm of scalars equal to
     # those digits
@@ -1190,9 +1294,10 @@ def _mesh_rank(mesh, height, setup=None):
     peak = torch.cuda.max_memory_allocated()
     prove_counts = dict(kernels.COUNTS)
     torch.cuda.reset_peak_memory_stats()
-    return {"rank": mesh.rank, "device": str(dev),
+    return {"rank": mesh.rank, "device": str(dev), "n": n,
             "proof": serialize_proof(proof), "prove_s": prove_s,
             "sharded": cols.sharded, "width": cols.coef.layout.width,
+            "plans": plans,
             "resident_bytes": resident, "peak_bytes": peak,
             "four_step_ms": four, "radix2_ms": radix,
             "sharded_ms": sharded, "meshed_commit_s": commit_s,
@@ -1208,10 +1313,13 @@ def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
     set-up on its card, when there are several; in this process on the
     main path's set-up when there is one). Every rank's sharded h15 proof
     must equal the main proof and verify; then the dry run over all the
-    cards and, with more than one, prove_many with one replica a card.
-    `counts` receives the launches of rank 0's whole run ("mesh"), of
-    each rank's sharded prove ("sharded", a list) and of the dry run when
-    it runs in this process."""
+    cards, the sharded prover at an odd log n (`_odd_log_n_meshes`) and,
+    with more than one card, prove_many with one process a card beside
+    the thread design. `counts` receives the launches of rank 0's whole
+    run ("mesh"), of each rank's sharded prove ("sharded", a list), of
+    the dry run when it runs in this process, of each h6 rank's sharded
+    prove ("sharded_h6", a list) and of prove_many's processes
+    ("prove_many_cards")."""
     import tempfile
     import torch
     from zprize_tpu_torch.entry import dryrun_multichip
@@ -1259,10 +1367,14 @@ def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
         if not verify(vk, lite, deserialize_proof(ranks[0]["proof"]), pi,
                       vtr):
             raise AssertionError("sharded proof does not verify")
+        counts["sharded_h6"] = []
+        odd = _odd_log_n_meshes(world, counts["sharded_h6"])
         many = None
         if world > 1:
+            counts["prove_many_cards"] = {}
             many = _prove_many(lay, pk, vk, dev_srs, lite, wires, pi,
-                               main_bytes, {}, devices=list(range(world)))
+                               main_bytes, counts["prove_many_cards"],
+                               devices=list(range(world)))
     per_rank = {k: [r[k] for r in ranks] for k in (
         "device", "prove_s", "resident_bytes", "peak_bytes", "sharded_ms",
         "four_step_ms", "meshed_commit_s")}
@@ -1279,9 +1391,71 @@ def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
                    "per_rank_resident_bytes": per_rank["resident_bytes"],
                    "per_rank_peak_bytes": per_rank["peak_bytes"],
                    "per_rank": per_rank, "dryrun": dry,
+                   "odd_log_n": odd,
                    "prove_many_cards": many,
                    "launches": counts["mesh"],
                    "launches_sharded": counts["sharded"]}})
+
+
+# n = 2^13: an odd log n, whose four-step sides are 2^6 and 2^7
+ODD_HEIGHT = 6
+
+
+def _odd_log_n_meshes(cards, counts):
+    """The sharded prover at an odd log n: the seeded h6 set-up (n =
+    2^13, the four-step sides 64 and 128, so the coefficient and the
+    evaluation layouts differ and the INTT takes the swapped plan) proved
+    whole on this card, then by `_mesh_rank` at world size 1 in this
+    process and, with the cards for them, at 2 and 4 spawned NCCL ranks,
+    each building the set-up on its card. Every rank's proof must equal
+    the whole proof, which verifies, and every rank must have run the
+    swapped INTT plan. `counts` (a list) receives each rank's sharded
+    prove launches. Returns the mesh line's entry, by world size."""
+    import tempfile
+    from zprize_tpu_torch.parallel import mesh as pmesh
+    from zprize_tpu_torch.protocol.serde import serialize_proof
+    from zprize_tpu_torch.ref.verifier import verify
+    from zprize_tpu_torch.tools.merkle_setup import MerkleSetup
+
+    h = ODD_HEIGHT
+    out = {}
+    with Phase(f"h{h}.mesh"):
+        setup = MerkleSetup.build(h, "cuda")
+        proof = setup.prove()
+        if not verify(setup.vk, setup.lite, proof,
+                      setup.witness.public_inputs, setup.transcript()):
+            raise AssertionError(f"h{h}: the whole proof does not verify")
+        whole = serialize_proof(proof)
+        for world in (1, 2, 4):
+            if world > cards:
+                break
+            if world == 1:
+                rdzv = tempfile.mkdtemp(prefix="zk-mesh-")
+                with pmesh.make_mesh("cuda", init_method=f"file://{rdzv}/r",
+                                     rank=0, world_size=1) as mesh:
+                    ranks = [_mesh_rank(mesh, h, setup)]
+            else:
+                ranks = pmesh.spawn_cuda(_mesh_rank, world, h)
+            for r in ranks:
+                if r["proof"] != whole:
+                    raise AssertionError(f"world size {world}, rank "
+                                         f"{r['rank']}: sharded h{h} proof "
+                                         f"!= the whole proof")
+                if not (r["sharded"] and r["plans"]["layouts_differ"]
+                        and r["plans"]["swapped_intt_ran"]):
+                    raise AssertionError(f"world size {world}, rank "
+                                         f"{r['rank']}: the swapped INTT "
+                                         f"plan did not run")
+            counts.extend(r["launches"]["sharded"] for r in ranks)
+            r0 = ranks[0]
+            out[str(world)] = {
+                "n": r0["n"], "log_n": r0["n"].bit_length() - 1,
+                "rank_width": r0["width"], **r0["plans"],
+                "sharded_ntt_intt_equal": True, "proof_bytes_equal": True,
+                "verify": "PASS",
+                "per_rank_prove_s": [r["prove_s"] for r in ranks],
+                "per_rank_peak_bytes": [r["peak_bytes"] for r in ranks]}
+    return out
 
 
 def _same(name, got, want):
@@ -1310,8 +1484,10 @@ def main_path(height, profile=False, mesh_only=False):
     memory attribution of one more prove each, the mesh phase, then both
     examples and the micro-benchmarks; returns the kernel launch counts of
     the main path, prove_many, the mesh phase (rank 0) and each rank's
-    sharded prove, {"main": ..., "prove_many": ..., "mesh": ..., "sharded":
-    [...]}, each of exactly its own run. mesh_only: the
+    sharded prove at the main height and at h6, and, with several cards,
+    of prove_many's processes: {"main": ..., "prove_many": ..., "mesh":
+    ..., "sharded": [...], "sharded_h6": [...], "prove_many_cards": ...},
+    each of exactly its own run. mesh_only: the
     rehearsal of the mesh phase (see the module docstring), without
     prove_many, the tools, the examples and the micro-benchmarks."""
     import torch
@@ -1525,16 +1701,17 @@ def main():
         counts = main_path(args.height, args.profile,
                            mesh_only="main" not in phases)
         for path, c in counts.items():
-            for one in (c if path == "sharded" else [c]):
+            # a sharded prove's launches are one count per rank
+            for one in (c if isinstance(c, list) else [c]):
                 _require_launched(path, one)
             if path != "main":
                 path_counts[path] = c
         for k, r in results.items():
             r["launches"] = counts["main"][k]
     for k, r in results.items():
-        # the sharded prove's launches are one count per rank
+        # a sharded prove's launches are one count per rank
         r["launches_by_path"] = {
-            p: [one[k] for one in c] if p == "sharded" else c[k]
+            p: [one[k] for one in c] if isinstance(c, list) else c[k]
             for p, c in path_counts.items()}
     if results:
         emit({"kernels": list(results.values())})

@@ -6,10 +6,12 @@ executable spec `zprize_tpu.ref.prover.prove` with both MSM backends, the
 native `combine_split` against the spec's, `keys_io` files read across the
 two packages, and `prove_many`. Inputs are seeded; comparisons exact."""
 
+import multiprocessing
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from zprize_tpu.params import R_MOD
 from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
@@ -234,19 +236,59 @@ def batch(srs_1k):
             "singles": singles}
 
 
-@pytest.mark.parametrize("devices", [None, ["cpu"]])
+@pytest.mark.parametrize("devices", [None, ["cpu"], ["cpu", "cpu"]],
+                         ids=["sequential", "one_device", "two_processes"])
 def test_prove_many_equals_single_proofs(batch, srs_1k, devices):
+    """In this process without devices or with one; with two, each
+    device's proofs in a spawned process of its own."""
     b = batch
     cfg = pt.ProverConfig(device="cpu", msm_backend="host")
+    stats = []
     proofs, wall, pps = prove_many(b["ws"], b["pk"], b["srs"], b["tr"], cfg,
-                                   devices)
+                                   devices, stats=stats)
     assert len(proofs) == 2 and wall > 0 and pps > 0
+    assert len(stats) == len(devices or [None])
+    for k, one in enumerate(stats):
+        assert one["device"] == "cpu"
+        assert len(one["prove_s"]) == len(one["cpu_s"]) == \
+            len(b["ws"][k::len(stats)])
+        # a spawned process reports its launches; this process keeps them
+        # in kernels.COUNTS
+        assert ("launches" in one) == (len(stats) > 1)
     assert [serialize_proof(p) for p in proofs] == b["singles"]
     assert proofs[0].evaluations != proofs[1].evaluations
     for proof, w in zip(proofs, b["ws"]):
         vtr = PortTranscript(b"batch")
         port_rp.seed_transcript(vtr, b["vk"])
         assert port_verify(b["vk"], srs_1k, proof, w.public_inputs, vtr)
+
+
+def test_prove_many_names_the_failing_worker(batch):
+    """A worker whose proof raises is named, with its device and its
+    traceback, and no worker process outlives the call."""
+    b = batch
+    short = pt.ProverWitness([w[:, :-1] for w in b["ws"][1].wires_dev],
+                             b["ws"][1].public_inputs,
+                             b["ws"][1].q_lookup_zero_mask)
+    cfg = pt.ProverConfig(device="cpu", msm_backend="host")
+    with pytest.raises(RuntimeError,
+                       match=r"prove_many: worker 1 on cpu raised") as e:
+        prove_many([b["ws"][0], short], b["pk"], b["srs"], b["tr"], cfg,
+                   ["cpu", "cpu"])
+    assert "Traceback" in str(e.value)
+    assert multiprocessing.active_children() == []
+
+
+def test_prove_many_needs_the_cards_it_names(batch):
+    """A card this machine does not have is named before any process
+    starts; there is no quiet fallback to another device."""
+    b = batch
+    missing = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=rf"device cuda:{missing} is not"):
+        prove_many(b["ws"], b["pk"], b["srs"], b["tr"],
+                   pt.ProverConfig(device="cpu", msm_backend="host"),
+                   ["cpu", f"cuda:{missing}"])
+    assert multiprocessing.active_children() == []
 
 
 def test_real_lookup_needs_the_witness_mask(spec, srs_1k):

@@ -128,6 +128,22 @@ def test_broadcasting_matches_jax(field):
         JC, ja3, jnp.asarray(b_np[:, :3].reshape(C.L, 3, 1))))
 
 
+@pytest.mark.parametrize("s,t", [
+    ((), ()), ((3,), ()), ((), (1, 4)), ((3, 1), (1, 4)), ((2, 1, 5), (5,)),
+    ((1,), (7,)), ((4, 3), (2, 3)), ((3,), (4,)), ((2, 1), (2, 3, 1))])
+def test_broadcast_shapes_follows_torch(s, t):
+    """`mont.broadcast_shapes` (which keeps a new process from importing
+    torch.fx's symbolic shapes) gives torch.broadcast_shapes's shape, and
+    refuses the shapes it refuses."""
+    try:
+        want = tuple(torch.broadcast_shapes(s, t))
+    except RuntimeError:
+        with pytest.raises(ValueError, match="do not broadcast"):
+            mont.broadcast_shapes(s, t)
+    else:
+        assert mont.broadcast_shapes(s, t) == want
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
 def test_batch_inv_and_product_tree(field):
     C, JC = FIELDS[field]

@@ -640,10 +640,36 @@ def test_spawn_cpu_names_the_failing_rank(how):
     assert time.monotonic() - t0 < timeout + 30
 
 
-def test_multihost_dryrun_tool_with_torchrun_environment():
-    """The tool's two ranks meet as torchrun starts them (env://)."""
-    from zprize_tpu_torch.tools import multihost_dryrun
-    multihost_dryrun.run(timeout_s=SPAWN_TIMEOUT_S)
+def test_multihost_dryrun_tool_with_torchrun_environment(srs_1k):
+    """The tool's two ranks meet as torchrun starts them (env://) and run
+    its three stages; the full meshed proof of every rank equals the JAX
+    package's spec proof (`zprize_tpu.ref.prover.prove`, same circuit,
+    SRS and transcript), made here while the ranks run, and verifies.
+    The SRS is the first 8 * circuit_bound + 9 powers of `srs_1k`, whose
+    tau is the tool's: the points of the tool's `SRS.setup`."""
+    from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
+    from zprize_tpu.protocol.serde import deserialize_proof, \
+        serialize_proof as jax_serialize
+    from zprize_tpu.protocol.transcript_protocol import TranscriptProtocol
+    from zprize_tpu.ref import prover as rp
+    from zprize_tpu.ref.kzg import SRS
+    from zprize_tpu.ref.verifier import verify
+    from zprize_tpu_torch.tools import multihost_dryrun as tool
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        ranks = ex.submit(tool.run, timeout_s=SPAWN_TIMEOUT_S)
+        jcs = dryrun_circuit(JaxComposer())
+        assert tool.TAU == 123456789
+        srs = SRS(srs_1k.powers_of_g[:8 * jcs.circuit_bound() + 9],
+                  srs_1k.h, srs_1k.beta_h)
+        tr = TranscriptProtocol(tool.LABEL)
+        pk, vk = rp.preprocess(jcs, srs, tr)
+        spec = jax_serialize(rp.prove(jcs, pk, srs, tr.clone()))
+        got = ranks.result()
+    assert got == [spec] * tool.NPROC
+    vtr = TranscriptProtocol(tool.LABEL)
+    rp.seed_transcript(vtr, vk)
+    assert verify(vk, srs, deserialize_proof(got[0]), jcs.public_inputs,
+                  vtr)
 
 
 @pytest.mark.slow

@@ -174,7 +174,7 @@ def xyzz_add(p, q):
     """K7: complete xyzz + xyzz (identity, doubling and cancellation
     cases) over stacked (4L, *batch) tensors of one shape."""
     if p.shape != q.shape:
-        shape = torch.broadcast_shapes(p.shape, q.shape)
+        shape = mont.broadcast_shapes(p.shape, q.shape)
         p, q = p.expand(shape), q.expand(shape)
     batch = p.shape[1:]
     a = p.reshape(4 * L, -1).contiguous()

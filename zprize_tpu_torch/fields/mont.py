@@ -122,8 +122,20 @@ def _periodic(x, bshape):
     return x.expand((L,) + tuple(bshape)).reshape(L, -1).contiguous()
 
 
+def broadcast_shapes(s, t):
+    """The broadcast of shapes s and t, by numpy's rule. (The same as
+    `torch.broadcast_shapes`, whose first call imports torch.fx's
+    symbolic shapes and sympy: seconds in every new process.)"""
+    n = max(len(s), len(t))
+    s = (1,) * (n - len(s)) + tuple(s)
+    t = (1,) * (n - len(t)) + tuple(t)
+    if any(x != y and 1 not in (x, y) for x, y in zip(s, t)):
+        raise ValueError(f"shapes {s} and {t} do not broadcast")
+    return tuple(y if x == 1 else x for x, y in zip(s, t))
+
+
 def _binary(fn, cfg, a, b):
-    bshape = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
+    bshape = broadcast_shapes(a.shape[1:], b.shape[1:])
     out = fn(cfg.P, _periodic(a, bshape), _periodic(b, bshape))
     return out.reshape((cfg.L,) + bshape)
 

@@ -41,10 +41,13 @@ The collectives, each named where it is used:
 `spawn_cpu` and `spawn_cuda` run a function on several ranks of this
 machine, one process each (gloo on the CPU, NCCL one card a rank): the
 tests, `entry.dryrun_multichip` and `tools/multihost_dryrun` use them where
-the JAX package used eight virtual CPU devices in one process.
+the JAX package used eight virtual CPU devices in one process. Their
+process handling, `run_processes` (deadlines, failures named, every
+process killed), also carries `protocol/batch.prove_many`'s one process
+a card.
 """
 
-import multiprocessing as mp
+import gc
 import os
 import pickle
 import queue
@@ -56,6 +59,7 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing
 
 from ..params import R_MOD
 from ..device import resolve
@@ -169,10 +173,100 @@ def _sum_over_ranks(mesh, p):
 
 
 # ---------------------------------------------------------------------------
-# spawned ranks
+# spawned processes, and spawned ranks
 # ---------------------------------------------------------------------------
 
-def _rank_main(fn, rank, world, kind, init_method, env, args, timeout_s,
+def put_result(results, msg):
+    """Put a spawned process's message (k, ok, payload) in `results` and
+    wait until it is in the pipe, so that it arrives even if the process
+    dies right after."""
+    results.put(msg)
+    results.close()
+    results.join_thread()
+
+
+# seconds a process that has put its result may take to end by itself
+EXIT_GRACE_S = 30
+
+
+def _process_main(target, k, box, results):
+    # the arguments come in a list that this process empties, so that
+    # they are dropped when `target` returns (and a CUDA IPC handle is
+    # released before the process ends), not held by the process object
+    target(k, *box.pop(), results)
+    gc.collect()
+
+
+def run_processes(name, target, args, timeout_s, what="rank", where=None):
+    """Start one spawned process for each tuple in `args` and return
+    their results in order. Process k runs `target(k, *args[k], results)`,
+    which ends by putting (k, True, pickled result) or (k, False,
+    traceback) in `results` with `put_result`. The processes come from
+    `torch.multiprocessing`, so tensors in `args` pass as shared memory
+    on the CPU and as IPC handles on a card; the caller keeps them alive
+    until the call returns.
+
+    Raises RuntimeError naming `what` k (and `where[k]`, when given) if
+    process k raises or dies without a result, and TimeoutError naming
+    those still running after `timeout_s` seconds. Every process is ended
+    before it returns or raises: when all have put their results each
+    gets EXIT_GRACE_S seconds to end by itself, else it is killed."""
+    count = len(args)
+
+    def who(k):
+        return f"{what} {k}" + (f" on {where[k]}" if where else "")
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    out = {}
+    procs = [ctx.Process(target=_process_main, daemon=True,
+                         args=(target, k, [tuple(a)], results))
+             for k, a in enumerate(args)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while len(out) < count:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                late = [k for k in range(count) if k not in out]
+                raise TimeoutError(
+                    f"{name}: {what}(s) {late} still running after "
+                    f"{timeout_s} s; killed" + (
+                        f" ({', '.join(str(where[k]) for k in late)})"
+                        if where else ""))
+            try:
+                k, ok, payload = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [k for k, p in enumerate(procs)
+                        if k not in out and p.exitcode is not None]
+                if dead and results.empty():
+                    # one more look: its last message may be in flight
+                    time.sleep(1.0)
+                    if results.empty():
+                        raise RuntimeError(
+                            f"{name}: {who(dead[0])} exited with code "
+                            f"{procs[dead[0]].exitcode} without a result")
+                continue
+            if not ok:
+                raise RuntimeError(f"{name}: {who(k)} raised:\n{payload}")
+            out[k] = payload
+    finally:
+        started = [p for p in procs if p.pid is not None]
+        if len(out) == count:
+            until = time.monotonic() + EXIT_GRACE_S
+            for p in started:
+                p.join(timeout=max(0.0, until - time.monotonic()))
+        for p in started:
+            if p.is_alive():
+                p.kill()
+        for p in started:
+            p.join(timeout=30)
+        results.close()
+    return [pickle.loads(out[k]) for k in range(count)]
+
+
+def _rank_main(rank, fn, world, kind, init_method, env, args, timeout_s,
                results):
     if kind == "cpu":
         torch.set_num_threads(1)
@@ -193,9 +287,7 @@ def _rank_main(fn, rank, world, kind, init_method, env, args, timeout_s,
         msg = (rank, False, traceback.format_exc())
     # the message is in the pipe before the group goes down, so a rank
     # that raised is reported before the peers that lose their connection
-    results.put(msg)
-    results.close()
-    results.join_thread()
+    put_result(results, msg)
     if mesh is not None:
         mesh.close()
 
@@ -208,56 +300,16 @@ def _free_port():
 
 def _spawn(name, kind, fn, world, args, timeout_s, torchrun_env):
     """Every rank's result, in rank order (see `spawn_cpu`)."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    out = {}
     with tempfile.TemporaryDirectory(prefix="zk-mesh-") as d:
         init = "file://" + os.path.join(d, "rendezvous")
         env = None
         if torchrun_env:
             env = {"WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
                    "MASTER_PORT": str(_free_port())}
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, r, world, kind, init, env, args,
-                                   timeout_s, results))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout_s
-        try:
-            while len(out) < world:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    late = [r for r in range(world) if r not in out]
-                    raise TimeoutError(
-                        f"{name}: rank(s) {late} still running after "
-                        f"{timeout_s} s; killed")
-                try:
-                    rank, ok, payload = results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in out and p.exitcode is not None]
-                    if dead and results.empty():
-                        # one more look: its last message may be in flight
-                        time.sleep(1.0)
-                        if results.empty():
-                            raise RuntimeError(
-                                f"{name}: rank {dead[0]} exited with "
-                                f"code {procs[dead[0]].exitcode} without "
-                                f"a result")
-                    continue
-                if not ok:
-                    raise RuntimeError(f"{name}: rank {rank} raised:\n"
-                                       f"{payload}")
-                out[rank] = payload
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-            for p in procs:
-                p.join(timeout=30)
-            results.close()
-    return [pickle.loads(out[r]) for r in range(world)]
+        return run_processes(
+            name, _rank_main,
+            [(fn, world, kind, init, env, args, timeout_s)] * world,
+            timeout_s)
 
 
 def spawn_cpu(fn, world, *args, timeout_s=TIMEOUT_S, torchrun_env=False):

@@ -1,4 +1,4 @@
-"""Multi-process dry run of the meshed prover's primitives — the port of
+"""Multi-process dry run of the meshed prover — the port of
 `tools/multihost_dryrun.py`, on `torch.distributed` with gloo on the CPU.
 
     python3 -m zprize_tpu_torch.tools.multihost_dryrun
@@ -12,7 +12,18 @@ torchrun, and:
      (`parallel.mesh.reference_four_step_check`);
   2. runs one sharded MSM window (32 points, 4-bit digits: per-rank bucket
      sums, the window points joined by an all_gather) and checks it
-     against the Python-int curve sum.
+     against the Python-int curve sum;
+  3. proves a five-gate circuit (a sum with a public input, a product
+     held to a constant, a range gate: `entry.dryrun_circuit`) with
+     `ProverConfig(mesh=...)` across the process boundary and checks that
+     the proof's bytes equal the executable spec's (`ref.prover.prove`,
+     same SRS `SRS.setup(8 * circuit_bound + 8, tau=123456789)`, same
+     transcript label b"multihost", 4-bit device-MSM windows) and that it
+     verifies. At two ranks n = 16 (a 4 x 4 plan) splits, so every rank
+     holds n/2 columns (the sharded layout). The JAX tool makes this
+     stage opt-in (MULTIHOST_FULL=1) because its meshed XLA:CPU compiles
+     take 10-20 minutes; here nothing compiles and the three stages take
+     about half a minute on a CPU, so this one always runs.
 Prints "MULTIHOST: PASS" and exits 0 when every rank passed; a rank that
 fails or is still running after MULTIHOST_TIMEOUT seconds (default 900)
 makes it print "MULTIHOST: FAIL" and exit 1.
@@ -26,10 +37,14 @@ from ..parallel import mesh as pmesh
 
 NPROC = 2
 PASS = "MULTIHOST DRYRUN PASS"
+# the full prover stage's SRS and transcript, as in the JAX tool
+TAU = 123456789
+LABEL = b"multihost"
 
 
 def worker(mesh):
-    """One rank: both checks; raises on a mismatch."""
+    """One rank: the three checks; raises on a mismatch. Returns every
+    rank's proof bytes, in rank order (on every rank)."""
     import numpy as np
     import torch
     from ..params import R_MOD
@@ -68,15 +83,52 @@ def worker(mesh):
         raise AssertionError("sharded MSM mismatch across processes")
     print(f"[proc {rank}] sharded MSM window over {mesh.size}-process "
           f"mesh: OK", flush=True)
+
+    # ---- 3. the full prover across the process boundary ----
+    import torch.distributed as dist
+    from ..circuit import StandardComposer
+    from ..entry import dryrun_circuit
+    from ..protocol import prover_torch as pt
+    from ..protocol.serde import serialize_proof
+    from ..protocol.transcript_protocol import TranscriptProtocol
+    from ..ref import prover as rp
+    from ..ref.kzg import SRS
+    from ..ref.verifier import verify
+
+    cs = dryrun_circuit(StandardComposer())
+    srs = SRS.setup(8 * cs.circuit_bound() + 8, tau=TAU)
+    tr = TranscriptProtocol(LABEL)
+    pk, vk = rp.preprocess(cs, srs, tr)
+    spec_bytes = serialize_proof(rp.prove(cs, pk, srs, tr.clone()))
+    cfg = pt.ProverConfig(device="cpu", mesh=mesh, msm_window_bits=4)
+    proof = pt.prove_torch(pt.ProverWitness.from_composer(cs, pk.n, "cpu"),
+                           pt.DevProverKey.from_ref(pk, "cpu"),
+                           pt.DevSRS.from_ref(srs, "cpu"), tr.clone(), cfg)
+    got = serialize_proof(proof)
+    if got != spec_bytes:
+        raise AssertionError("meshed multihost proof != spec proof")
+    vtr = TranscriptProtocol(LABEL)
+    rp.seed_transcript(vtr, vk)
+    if not verify(vk, srs, proof, cs.public_inputs, vtr):
+        raise AssertionError("meshed multihost proof does not verify")
+    cols = pmesh.Columns(pk.n.bit_length() - 1, "cpu", mesh)
+    print(f"[proc {rank}] FULL meshed proof across {mesh.size} processes "
+          f"(n = {pk.n}, {cols.coef.layout.width} columns a rank): "
+          f"byte-equal to spec + verified", flush=True)
     print(f"[proc {rank}] {PASS}", flush=True)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, got, group=mesh.group)
+    return every
 
 
 def run(nproc=NPROC, timeout_s=None):
-    """Both checks on `nproc` ranks with torchrun's environment; raises
-    naming the rank that failed or did not finish."""
+    """The three checks on `nproc` ranks with torchrun's environment;
+    returns every rank's proof bytes, in rank order. Raises naming the
+    rank that failed or did not finish."""
     if timeout_s is None:
         timeout_s = int(os.environ.get("MULTIHOST_TIMEOUT", "900"))
-    pmesh.spawn_cpu(worker, nproc, timeout_s=timeout_s, torchrun_env=True)
+    return pmesh.spawn_cpu(worker, nproc, timeout_s=timeout_s,
+                           torchrun_env=True)
 
 
 def main():
