@@ -14,7 +14,11 @@ seconds when it ends:
            forms a Montgomery product compiles to (int_rate)
   kernels  each of the nine elementwise kernels against its plain
            PyTorch version at n = 2^16 + 37 (random + edge values, exact
-           equality), then its time per launch at n = 2^22
+           equality; K5 also along axis -2 with a lane stride, at a small
+           odd shape and at the h15 four-step's 2^11 rows x 2^11 lanes),
+           then its time per launch at n = 2^22 (K5 flat and with lanes);
+           then ops/ntt's four-step NTT and INTT of two 2^22 columns
+           against the flat radix-2 stage chain (four_step_check)
   msm      the MSM's bucket kernels (bucket_acc, bucket_sum) and the
            tree-level K7 (xyzz_add_pairs) bit-equal to their plain versions
            on 2^16 points (random, skewed and all-equal digits, every
@@ -51,7 +55,7 @@ seconds when it ends:
            path's set-up with one card, else one spawned process a card,
            each building that set-up on its own card. On each rank: the
            four-step NTT and INTT of the five round-1 columns (n1 = n2 =
-           2^11 at h15) held equal to ops/ntt's radix-2 ones and timed
+           2^11 at h15) held equal to ops/ntt's and timed
            beside them, and the sharded transforms of the rank's columns
            alone; the sharded MSM window and the meshed commit held to
            msm.msm; then the rank keeps its columns of the key, witness and
@@ -129,21 +133,29 @@ CHECK_N = (1 << 16) + 37
 # bucket_sum runs only where a bucket has more than msm.CHUNK members,
 # which the circuit's n = 2^10 does not promise
 OFF_PATH = ("mul3", "xyzz_add_mixed")
+# K5 runs flat (mul_add_sub) in the radix-2 transforms below n = 2^13 and
+# along axis -2 (mul_add_sub_lanes) in the four-step ones from 2^13 up:
+# every transform of the h15 path (n = 2^22) is four-step, a sharded
+# rank's are the mesh's four-step on 2^11-point radix-2 sub-transforms
+FLAT_ONLY = ("mul_add_sub_lanes",)
+LANES_ONLY = ("mul_add_sub",)
 NOT_LAUNCHED = {
-    # the entry step runs the Poseidon rounds (mul, add) and an INTT
+    # the entry step runs the Poseidon rounds (mul, add) and a 2^7 INTT
     # (mul_add_sub, mul)
-    "entry": OFF_PATH + ("sub", "neg", "xyzz_add", "xyzz_add_affine2",
-                         "xyzz_add_pairs", "bucket_acc", "bucket_sum"),
-    "main": OFF_PATH,
-    "prove_many": OFF_PATH + ("xyzz_add_affine2",),
+    "entry": OFF_PATH + FLAT_ONLY + (
+        "sub", "neg", "xyzz_add", "xyzz_add_affine2", "xyzz_add_pairs",
+        "bucket_acc", "bucket_sum"),
+    "main": OFF_PATH + LANES_ONLY,
+    "prove_many": OFF_PATH + LANES_ONLY + ("xyzz_add_affine2",),
     # one rank's sharded prove: no device_srs either
-    "sharded": OFF_PATH + ("xyzz_add_affine2",),
+    "sharded": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2",),
     # one rank's sharded prove at h6 (n = 2^13), whose MSM buckets need
     # not outgrow msm.CHUNK
-    "sharded_h6": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
+    "sharded_h6": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2", "bucket_sum"),
     # prove_many's processes, one a card, added up
-    "prove_many_cards": OFF_PATH + ("xyzz_add_affine2",),
-    "circuit": OFF_PATH + ("xyzz_add_affine2", "bucket_sum"),
+    "prove_many_cards": OFF_PATH + LANES_ONLY + ("xyzz_add_affine2",),
+    # n = 2^10
+    "circuit": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2", "bucket_sum"),
     # the set-up's or the dry run's device_srs launches xyzz_add_affine2
     "mesh": OFF_PATH,
 }
@@ -455,14 +467,18 @@ def record(name, replaces, fn, bytes_moved, ops, errs, reps=10, **extra):
 
 
 def check_kernels():
-    """Returns {name: record} for the nine elementwise kernels; raises on
-    a mismatch, at n = 2^16 + 37 and at the timed n = 2^22."""
+    """Returns {name: record} for the nine elementwise kernels (K5 twice:
+    flat, and along axis -2 with a lane stride); raises on a mismatch, at
+    n = 2^16 + 37 (K5 with lanes at a small odd shape and at the h15
+    four-step's) and at the timed n = 2^22. Then the four-step transforms
+    at 2^22 against the flat radix-2 chain (check_four_step)."""
     import numpy as np
     import torch
     from zprize_tpu_torch.fields import kernels
     from zprize_tpu_torch.fields.mont import FR, FQ
     from zprize_tpu_torch.curve import g1
-    from zprize_tpu_torch.ops import ntt
+    from zprize_tpu_torch.ops import ntt, poly
+    from zprize_tpu_torch.ref.field import root_of_unity
 
     rng = np.random.default_rng(20261017)
     n = CHECK_N
@@ -477,6 +493,16 @@ def check_kernels():
     plan = ntt.get_plan(12, "cuda")
     stage_inputs = [(_rand_field(FR, 2 * n, rng), 1),
                     (_rand_field(FR, 37 * 4096, rng), 2048)]
+    # K5 along axis -2: a small odd shape (3 x 2^6 rows x 2^3 lanes, so a
+    # warp spans four pairs of rows) and the h15 four-step's (2^11 rows x
+    # 2^11 lanes), with its 2^11-point sub-plan's twiddles
+    tw11 = ntt.get_plan(11, "cuda").tw
+    lane_inputs = [(_rand_field(FR, 3 * 64 * 8, rng), 8, 1, plan.tw, 64),
+                   (_rand_field(FR, 3 * 64 * 8, rng), 8, 16, plan.tw, 1),
+                   (_rand_field(FR, 1 << 22, rng), 1 << 11, 1, tw11,
+                    1 << 10),
+                   (_rand_field(FR, 1 << 22, rng), 1 << 11, 1 << 10, tw11,
+                    1)]
     aff, xyzz = _rand_points(n, rng)
     mixed = _mixed_operands(xyzz[0], aff)
 
@@ -499,6 +525,10 @@ def check_kernels():
         step = plan.n // (2 * half)
         check("mul_add_sub", f"half={half}",
               lambda: kernels.butterfly_stage(FR.P, x, plan.tw, half, step))
+    for x, lanes, half, tw, step in lane_inputs:
+        check("mul_add_sub_lanes", f"lanes={lanes},half={half}",
+              lambda: kernels.butterfly_stage(FR.P, x, tw, half, step,
+                                              lanes))
     P, Q = xyzz
     check("xyzz_add", "specials", lambda: g1.xyzz_add(P, Q))
     check("xyzz_add_mixed", "specials", lambda: g1.xyzz_add_mixed(*mixed))
@@ -515,12 +545,14 @@ def check_kernels():
     bigP, bigQ = _tile(P, N), _tile(Q, N)
     big_aff = [_tile(t, N) for t in aff]
     big_mixed = [_tile(t, N) for t in mixed]
-    big_tw = ntt.get_plan(22, "cuda").tw
+    # the flat stage's table, w^j for j < 2^21 (a four-step plan holds
+    # no radix-2 table)
+    big_tw = poly.powers(FR, FR.scalar(root_of_unity(22), "cuda"), N // 2)
     bx = _tile(stage_inputs[0][0], N)
 
-    def rec(name, replaces, fn, bytes_moved, ops, field):
+    def rec(name, replaces, fn, bytes_moved, ops, field, **extra):
         return record(name, replaces, fn, bytes_moved, ops, checks[name],
-                      field=field, n=N)
+                      field=field, n=N, **extra)
 
     fq_a, fq_b, fq_c = big["fq"]
     fr_a, fr_b, _ = big["fr"]
@@ -542,7 +574,17 @@ def check_kernels():
         lambda: kernels.butterfly_stage(FR.P, bx, big_tw, 1 << 10, 1 << 11),
         # the stage reads `half` = 2^10 distinct twiddle columns
         2 * 16 * 4 * N + 16 * 4 * (1 << 10),
-        (fr_ops["mul"] + 2 * fr_ops["addsub"]) * (N // 2), "fr")
+        (fr_ops["mul"] + 2 * fr_ops["addsub"]) * (N // 2), "fr", lanes=1)
+    # the last stage of the h15 four-step's first sub-transform: 2^11
+    # rows of 2^11 lanes, half = 2^10, one twiddle row
+    lx = lane_inputs[2][0]
+    out["mul_add_sub_lanes"] = rec(
+        "mul_add_sub_lanes", "zprize_tpu/fields/pkern.py:172",
+        lambda: kernels.butterfly_stage(FR.P, lx, tw11, 1 << 10, 1,
+                                        1 << 11),
+        2 * 16 * 4 * N + 16 * 4 * (1 << 10),
+        (fr_ops["mul"] + 2 * fr_ops["addsub"]) * (N // 2), "fr",
+        lanes=1 << 11)
     out["mul3"] = rec("mul3", "zprize_tpu/fields/pkern.py:187",
                       lambda: kernels.mul3(FQ.P, fq_a, fq_b, fq_c),
                       4 * 24 * 4 * N, 2 * fq_ops["mul"] * N, "fq")
@@ -561,8 +603,66 @@ def check_kernels():
     for k, r in out.items():
         emit({"kernel_check": k, "equal": True, "cases": len(checks[k]),
               "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    del big, bigP, bigQ, big_aff, big_mixed, bx
+    del big, bigP, bigQ, big_aff, big_mixed, bx, lx, lane_inputs
+    emit({"four_step_check": check_four_step(big_tw)})
+    del big_tw
     torch.cuda.empty_cache()
+    return out
+
+
+FOUR_STEP_COLUMNS = 2
+
+
+def check_four_step(tw):
+    """ops/ntt's NTT and INTT (four-step: two 2^11-point sub-transforms
+    along axis -2, the mid twiddles, one transpose) of two 2^22 columns
+    against the flat radix-2 chain on the same columns: a bit-reversal
+    gather, 22 flat K5 stages on `tw` (w^j, j < 2^21) or its inverse
+    built here, and 1/n for the inverse; and intt(ntt(x)) == x. Raises on
+    a mismatch; returns both chains' times."""
+    import numpy as np
+    import torch
+    from zprize_tpu_torch.fields import kernels, mont
+    from zprize_tpu_torch.fields.mont import FR
+    from zprize_tpu_torch.ops import ntt, poly
+    from zprize_tpu_torch.params import R_MOD
+    from zprize_tpu_torch.ref.field import root_of_unity
+    from zprize_tpu_torch.tools.cudatime import time_ms
+
+    log_n, n, L = 22, TIME_N, FR.L
+    rng = np.random.default_rng(20261020)
+    x = _rand_field(FR, FOUR_STEP_COLUMNS * n, rng).reshape(
+        L, FOUR_STEP_COLUMNS, n)
+    plan = ntt.get_plan(log_n, "cuda")
+    if plan.p1 is None or (plan.p1.n, plan.p2.n) != (1 << 11, 1 << 11):
+        raise AssertionError("the 2^22 plan is not a 2^11 x 2^11 four-step")
+    itw = poly.powers(FR, FR.scalar(pow(root_of_unity(log_n), -1, R_MOD),
+                                    "cuda"), n // 2)
+    rev = torch.from_numpy(ntt._bit_reverse_indices(n)).cuda()
+    n_inv = FR.scalar(pow(n, -1, R_MOD), "cuda")
+
+    def flat(a, table, invert):
+        y = a.index_select(2, rev).reshape(L, -1)
+        for s in range(1, log_n + 1):
+            y = kernels.butterfly_stage(FR.P, y, table, 1 << (s - 1),
+                                        n >> s)
+        y = y.reshape(a.shape)
+        return mont.mont_mul(FR, y, n_inv) if invert else y
+
+    out = {"n": n, "columns": FOUR_STEP_COLUMNS,
+           "plan": [plan.p2.n, plan.p1.n]}
+    out["ntt_ms"], ev = time_ms(lambda: ntt.ntt(plan, x), 5)
+    out["flat_ntt_ms"], want = time_ms(lambda: flat(x, tw, False), 5)
+    out["ntt_equal"] = torch.equal(ev, want)
+    del want
+    out["intt_ms"], co = time_ms(lambda: ntt.intt(plan, x), 5)
+    out["flat_intt_ms"], want = time_ms(lambda: flat(x, itw, True), 5)
+    out["intt_equal"] = torch.equal(co, want)
+    del want, co
+    out["roundtrip_equal"] = torch.equal(ntt.intt(plan, ev), x)
+    if not (out["ntt_equal"] and out["intt_equal"]
+            and out["roundtrip_equal"]):
+        raise AssertionError(f"four-step transform != flat chain: {out}")
     return out
 
 
@@ -1180,7 +1280,7 @@ def _mesh_rank(mesh, height, setup=None):
     """One rank of the mesh phase, on its card. Builds the main path's
     seeded set-up there (or takes `setup`, the main path's own, when the
     world size is 1); on its whole tensors holds the four-step NTT / INTT
-    of the five round-1 columns to the radix-2 ones (and times both, and
+    of the five round-1 columns to ops/ntt's (and times both, and
     the sharded transforms alone), the sharded MSM window and the meshed
     commit to msm.msm; then keeps only its columns of the key, witness and
     SRS (`shard`), frees the whole, and proves. Returns Python values:
@@ -1214,10 +1314,10 @@ def _mesh_rank(mesh, height, setup=None):
         FR.tensor(list(pi.values()), dev)
     evals = torch.stack(list(setup.witness.wires_dev) + [pi_col], dim=1)
     plan = ntt.get_plan(log_n, dev)
-    radix = {}
-    radix["intt_ms"], coeffs = time_ms(lambda: ntt.intt(plan, evals), 5)
-    radix["ntt_ms"], evals2 = time_ms(lambda: ntt.ntt(plan, coeffs), 5)
-    _same("radix-2 ntt(intt(x))", evals2, evals)
+    whole = {}
+    whole["intt_ms"], coeffs = time_ms(lambda: ntt.intt(plan, evals), 5)
+    whole["ntt_ms"], evals2 = time_ms(lambda: ntt.ntt(plan, coeffs), 5)
+    _same("ops/ntt ntt(intt(x))", evals2, evals)
     del evals2
     fsp = pmesh.four_step_plan(log_n, dev)
     # rows[i1, i2] = coeffs[i1 + n1*i2]
@@ -1299,7 +1399,7 @@ def _mesh_rank(mesh, height, setup=None):
             "sharded": cols.sharded, "width": cols.coef.layout.width,
             "plans": plans,
             "resident_bytes": resident, "peak_bytes": peak,
-            "four_step_ms": four, "radix2_ms": radix,
+            "four_step_ms": four, "ops_ntt_ms": whole,
             "sharded_ms": sharded, "meshed_commit_s": commit_s,
             "launches": {"mesh": {k: before[k] + prove_counts[k]
                                   for k in before},
@@ -1382,7 +1482,7 @@ def _mesh_phase(lay, pk, vk, dev_srs, lite, wires, pi, main_bytes,
     emit({"mesh": {"height": h, "world_size": world, "backend": "nccl",
                    "n": n, "columns": 5, "sharded": r0["sharded"],
                    "rank_width": r0["width"],
-                   "radix2_ms": r0["radix2_ms"],
+                   "ops_ntt_ms": r0["ops_ntt_ms"],
                    "ntt_equal": True, "intt_equal": True,
                    "msm_window_equal": True, "meshed_commit_equal": True,
                    "main_prove_s": main_prove_s,
@@ -1461,7 +1561,7 @@ def _odd_log_n_meshes(cards, counts):
 def _same(name, got, want):
     import torch
     if not torch.equal(got, want):
-        raise AssertionError(f"{name}: differs from the radix-2 transform")
+        raise AssertionError(f"{name}: differs from ops/ntt's transform")
 
 
 def _affine(p):

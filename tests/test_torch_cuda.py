@@ -69,6 +69,30 @@ def test_butterfly_stage_matches_plain(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes,half", [(8, 1), (8, 16), (64, 4)])
+def test_butterfly_stage_with_lanes_matches_plain(card, lanes, half):
+    """K5 along axis -2 of (L, 3, 64, lanes)."""
+    plan = ntt.get_plan(10, card)
+    x = _field(FR, 3 * 64 * lanes, 6, card)
+    step = 512 // half
+    got = kernels.butterfly_stage(FR.P, x, plan.tw, half, step, lanes)
+    want = plain(kernels.butterfly_stage, FR.P, x, plan.tw, half, step,
+                 lanes)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_four_step_transforms_match_plain(card):
+    """The 2^13 plan is four-step (2^7 rows x 2^6 lanes, then 2^6 x
+    2^7)."""
+    plan = ntt.get_plan(13, card)
+    assert plan.p1 is not None
+    x = _field(FR, 2 * 8192, 7, card).reshape(FR.L, 2, 8192)
+    for fn in (ntt.ntt, ntt.intt):
+        assert torch.equal(fn(plan, x), plain(fn, plan, x)), fn.__name__
+
+
+@pytest.mark.cuda
 def test_point_kernels_match_plain(card):
     rng = np.random.default_rng(4)
     pool = [g1_mul(G1_GEN, int(k)) for k in rng.integers(1, 1 << 30, 16)]

@@ -100,19 +100,27 @@ neg_kernel(const uint32_t* __restrict__ a, long long pa,
 }
 
 // One radix-2 stage over a (16, n) Fr array whose columns are blocks of
-// 2*half: u = column blk*2h + j, v = u + h, w = tw[:, j * tw_step].
+// 2*half rows of `lanes` = 2^log_lanes columns each (a stage along axis -2
+// of (16, ..., rows, lanes); lanes = 1 is the flat stage along the last
+// axis). Thread t takes lane t & (lanes-1) of pair p = t >> log_lanes:
+// u = row blk*2h + j, v = u + h, w = tw[:, j * tw_step]. Neighbouring
+// threads read neighbouring columns of each limb row either way, and with
+// lanes >= 32 the 32 threads of a warp read one twiddle (one broadcast).
 __global__ void __launch_bounds__(kThreads)
 butterfly_stage_kernel(const uint32_t* __restrict__ a,
                        uint32_t* __restrict__ out, long long n,
-                       int log_half, const uint32_t* __restrict__ tw,
-                       long long tw_n, long long tw_step) {
+                       int log_half, int log_lanes,
+                       const uint32_t* __restrict__ tw, long long tw_n,
+                       long long tw_step) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (n >> 1)) return;
+  const long long lane = t & ((1LL << log_lanes) - 1);
+  const long long p = t >> log_lanes;
   const long long half = 1LL << log_half;
-  const long long blk = t >> log_half;
-  const long long j = t & (half - 1);
-  const long long iu = (blk << (log_half + 1)) + j;
-  const long long iv = iu + half;
+  const long long blk = p >> log_half;
+  const long long j = p & (half - 1);
+  const long long iu = (((blk << (log_half + 1)) + j) << log_lanes) + lane;
+  const long long iv = iu + (half << log_lanes);
   uint32_t u[8], v[8], w[8], vw[8], r[8];
   load_fe<8>(u, a, n, iu);
   load_fe<8>(v, a, n, iv);
@@ -372,13 +380,13 @@ int zk_neg(int field, const void* a, long long pa, void* out, long long n,
 }
 
 int zk_butterfly_stage(const void* a, void* out, long long n, int log_half,
-                       const void* tw, long long tw_n, long long tw_step,
-                       void* stream) {
+                       int log_lanes, const void* tw, long long tw_n,
+                       long long tw_step, void* stream) {
   if (n <= 1) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   butterfly_stage_kernel<<<blocks_for(n >> 1, kThreads), kThreads, 0, s>>>(
       static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out), n,
-      log_half, static_cast<const uint32_t*>(tw), tw_n, tw_step);
+      log_half, log_lanes, static_cast<const uint32_t*>(tw), tw_n, tw_step);
   return (int)cudaGetLastError();
 }
 

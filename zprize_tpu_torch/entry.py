@@ -112,7 +112,7 @@ def _dryrun_rank(mesh, srs, pk, vk, transcript, spec_bytes):
         raise AssertionError("sharded Poseidon != hash2_batch")
     if not torch.equal(evals.reshape(FR.L, fsp.n),
                        ntt.ntt(ntt.get_plan(2 * log_side, dev), natural)):
-        raise AssertionError("four-step NTT != radix-2 NTT")
+        raise AssertionError("meshed four-step NTT != ops/ntt NTT")
     if g1.xyzz_to_affine_host(total[:, None])[0] != \
             g1_mul(G1_GEN, npts * (npts + 1) // 2):
         raise AssertionError("sharded point sum != (sum k) G")

@@ -42,10 +42,13 @@ ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 LOCK_TIMEOUT_S = 600
 BUILD_TIMEOUT_S = 600
 
-KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub", "mul3",
-                "xyzz_add", "xyzz_add_mixed", "xyzz_add_affine2",
-                "xyzz_add_pairs", "bucket_acc", "bucket_sum")
-# launches of each CUDA kernel since the last reset_counts()
+KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub",
+                "mul_add_sub_lanes", "mul3", "xyzz_add", "xyzz_add_mixed",
+                "xyzz_add_affine2", "xyzz_add_pairs", "bucket_acc",
+                "bucket_sum")
+# launches of each CUDA kernel since the last reset_counts(); K5's flat
+# stages (mul_add_sub) and its stages along axis -2 (mul_add_sub_lanes)
+# are counted apart
 COUNTS = {k: 0 for k in KERNEL_NAMES}
 
 _LIB = None
@@ -183,7 +186,7 @@ def load_library():
         getattr(h, name).argtypes = [I, P, LL, P, LL, P, LL, P]
     h.zk_mul3.argtypes = [I, P, LL, P, LL, P, LL, P, LL, P]
     h.zk_neg.argtypes = [I, P, LL, P, LL, P]
-    h.zk_butterfly_stage.argtypes = [P, P, LL, I, P, LL, LL, P]
+    h.zk_butterfly_stage.argtypes = [P, P, LL, I, I, P, LL, LL, P]
     h.zk_xyzz_add.argtypes = [P, P, P, LL, P]
     h.zk_xyzz_add_mixed.argtypes = [P, P, P, P, LL, P]
     h.zk_xyzz_add_affine2.argtypes = [P, P, P, P, P, LL, P]
@@ -283,39 +286,48 @@ def neg(P, a):
 # K5: one radix-2 NTT stage over Fr
 # ---------------------------------------------------------------------------
 
-def butterfly_stage_plain(P, a, tw, half, tw_step):
+def butterfly_stage_plain(P, a, tw, half, tw_step, lanes=1):
     """Plain version of K5 on (16, N) int64: the columns form blocks of
-    2*half; u = first half, v = second half, w = tw[:, j * tw_step];
-    returns the stage output (u + v*w | u - v*w)."""
+    2*half rows of `lanes` columns; u = the first half of a block's rows,
+    v = the second, w = tw[:, j * tw_step] for row j of a half (the same
+    for every lane); returns the stage output (u + v*w | u - v*w)."""
     L, N = a.shape
-    x = a.reshape(L, N // (2 * half), 2, half)
+    blocks = N // (2 * half * lanes)
+    x = a.reshape(L, blocks, 2, half * lanes)
     u = x[:, :, 0].reshape(L, -1)
     v = x[:, :, 1].reshape(L, -1)
     w = tw[:, :half * tw_step:tw_step]
-    w = w.repeat(1, N // (2 * half))
+    w = w[:, None, :, None].expand(L, blocks, half, lanes).reshape(L, -1)
     vw = limbmath.mul(P, v, w)
-    hi = limbmath.add(P, u, vw).reshape(L, N // (2 * half), 1, half)
-    lo = limbmath.sub(P, u, vw).reshape(L, N // (2 * half), 1, half)
+    hi = limbmath.add(P, u, vw).reshape(L, blocks, 1, half * lanes)
+    lo = limbmath.sub(P, u, vw).reshape(L, blocks, 1, half * lanes)
     return torch.cat([hi, lo], dim=2).reshape(L, N)
 
 
-def butterfly_stage(P, a, tw, half, tw_step):
+def butterfly_stage(P, a, tw, half, tw_step, lanes=1):
     """K5 (pkern.mul_add_sub, the fused butterfly (u + v*w, u - v*w)) for
-    one whole NTT stage: a is (16, N) with N a multiple of 2*half, tw a
-    (16, T) twiddle table read at column j * tw_step."""
+    one whole NTT stage: a is (16, N), the flattened (16, ..., rows,
+    lanes) with rows a multiple of 2*half, and the stage runs along the
+    rows (axis -2) with `lanes` (a power of two) columns a row; lanes = 1
+    is the flat stage along the last axis. tw is a (16, T) twiddle table
+    read at column j * tw_step. Counted as "mul_add_sub" with lanes = 1,
+    "mul_add_sub_lanes" otherwise."""
     if not use_kernel(a):
         return butterfly_stage_plain(P, a.to(torch.int64),
-                                     tw.to(torch.int64), half,
-                                     tw_step).to(torch.int32)
+                                     tw.to(torch.int64), half, tw_step,
+                                     lanes).to(torch.int32)
     check_operand(a, 16, a.device)
     check_operand(tw, 16, a.device)
     N = a.shape[1]
-    if N % (2 * half) or (half - 1) * tw_step >= tw.shape[1]:
+    if lanes & (lanes - 1) or half & (half - 1) \
+            or N % (2 * half * lanes) or (half - 1) * tw_step >= tw.shape[1]:
         raise ValueError("bad butterfly stage shape")
     out = torch.empty_like(a)
     rc = load_library().zk_butterfly_stage(
         a.data_ptr(), out.data_ptr(), N, half.bit_length() - 1,
-        tw.data_ptr(), tw.shape[1], tw_step, stream())
-    check(rc, "mul_add_sub")
-    count("mul_add_sub")
+        lanes.bit_length() - 1, tw.data_ptr(), tw.shape[1], tw_step,
+        stream())
+    name = "mul_add_sub" if lanes == 1 else "mul_add_sub_lanes"
+    check(rc, name)
+    count(name)
     return out

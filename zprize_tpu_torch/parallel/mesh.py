@@ -463,8 +463,8 @@ class FourStepPlan:
     i1 at [:, i1, :]. Output R[k1][k2] = X[k2 + n2*k1] as (L, n1, n2): in
     row-major order the natural evaluations. Each rank holds n1/D rows
     before the transpose and n2/D columns after it: its columns of
-    `Layout(n, n1)` in, of `Layout(n, n2)` out. The plan holds the radix-2
-    plans (cached per card by `ops/ntt`) of sizes n1 and n2, and the
+    `Layout(n, n1)` in, of `Layout(n, n2)` out. The plan holds the
+    `ops/ntt` plans (cached per card) of sizes n1 and n2, and the
     rank's twiddles once they are asked for: they go with the plan (the
     prover makes its plans per prove, so nothing stays after it)."""
 
@@ -584,7 +584,7 @@ class Columns:
     evaluation layout (see the header), and the transforms between them.
     `sharded` is False with no mesh, or when a four-step side does not
     split over its ranks: then both are the whole axis and the transforms
-    are `ops/ntt`'s radix-2 ones."""
+    are `ops/ntt`'s."""
 
     def __init__(self, log_n, device, mesh=None):
         self.log_n = log_n

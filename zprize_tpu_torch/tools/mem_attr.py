@@ -116,6 +116,8 @@ def _resident(setup):
                     yield t
     pk, srs = setup.pk, setup.dev_srs
     plan = ntt.get_plan(pk.log_n, setup.lay.device)
+    # a four-step plan's sub-plans hold their own radix-2 tables
+    plans = [plan] if plan.p1 is None else [plan, plan.p1, plan.p2]
     sct = ntt.get_subcoset_tables(pk.log_n, setup.lay.device)
     return {
         "layout": size(tensors(setup.lay)),
@@ -124,7 +126,8 @@ def _resident(setup):
         "key_sigmas": size(pk.sigma_poly + pk.sigma_evals_n),
         "key_tables": size(pk.table_cols),
         "witness": size(setup.witness.wires_dev),
-        "ntt_tables": size(list(tensors(plan)) + list(tensors(sct))),
+        "ntt_tables": size([t for p in plans for t in tensors(p)]
+                           + list(tensors(sct))),
     }
 
 
