@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.params import R_MOD
 from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
 from zprize_tpu.protocol import keys_io as jax_keys_io

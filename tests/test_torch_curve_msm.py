@@ -18,6 +18,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.curve import g1 as jg1
 from zprize_tpu.ops import msm as jmsm
 from zprize_tpu.params import R_MOD, Q_MOD

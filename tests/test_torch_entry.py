@@ -15,6 +15,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
 from zprize_tpu.fields.mont import FR as JFR
 from zprize_tpu.merkle.circuit import MerkleTreeCircuit as JaxCircuit

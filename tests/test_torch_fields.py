@@ -10,6 +10,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.fields import mont as jmont
 from zprize_tpu.fields import pkern
 from zprize_tpu.fields.mont import FR as JFR, FQ as JFQ

@@ -19,6 +19,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.circuit.composer import StandardComposer as JaxComposer
 from zprize_tpu.fields.mont import FR as JFR
 from zprize_tpu.ops import ntt as jntt
@@ -43,19 +45,6 @@ from zprize_tpu_torch.protocol.transcript_protocol import \
 from zprize_tpu_torch.ref import prover as port_rp
 
 M = FR.mod
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Each test on one torch thread. The tier-1 run starts several
-    pytest workers at once, and torch's intra-op threads in each (one a
-    core) then outnumber the cores: from (16, 2^11) tensors up every
-    plain limb op waits at its thread barrier, and the 2^11-2^15 cases
-    took minutes each instead of seconds."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _ints(n, seed):

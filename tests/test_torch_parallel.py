@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu_torch.circuit import StandardComposer
 from zprize_tpu_torch.curve import g1
 from zprize_tpu_torch.entry import dryrun_circuit
@@ -377,19 +379,12 @@ def proofs(inputs, spec):
     spec's key and proof (JAX package), over the first 65 powers of tau =
     123456789 (those of `srs_1k`; a circuit of n = 16 reads no more). The
     ranks prove while this process makes the unmeshed proof."""
-    threads = torch.get_num_threads()
-    # one thread, as each rank has: the plain versions' small tensor
-    # operations slow down ~3x when 8 threads contend with the ranks
-    torch.set_num_threads(1)
     srs, key = inputs["srs"], inputs["keys"]["dryrun"]
-    try:
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            ranks = ex.submit(pmesh.spawn_cpu, _prove, 2, srs, key,
-                              timeout_s=SPAWN_TIMEOUT_S)
-            unmeshed = serialize_proof(_prove(None, srs, key))
-            meshed = serialize_proof(ranks.result())
-    finally:
-        torch.set_num_threads(threads)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        ranks = ex.submit(pmesh.spawn_cpu, _prove, 2, srs, key,
+                          timeout_s=SPAWN_TIMEOUT_S)
+        unmeshed = serialize_proof(_prove(None, srs, key))
+        meshed = serialize_proof(ranks.result())
     s = spec["dryrun"]
     return {"srs": srs, "vk": s["vk"], "jcs": s["jcs"], "spec": s["proof"],
             "unmeshed": unmeshed, "meshed": meshed}

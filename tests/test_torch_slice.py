@@ -14,6 +14,8 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu.params import R_MOD
 from zprize_tpu.circuit.composer import StandardComposer
 from zprize_tpu.fields.mont import FR as JFR

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (one torch thread)
+
 from zprize_tpu_torch.tools import mem_attr, micro, timeline
 from zprize_tpu_torch.tools.cudatime import require_cuda
 from zprize_tpu_torch.tools.merkle_setup import seeded_leaves
@@ -84,3 +86,9 @@ def test_tools_refuse_to_run_without_a_card():
                lambda: mem_attr.measure(None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+def test_port_tests_run_on_one_torch_thread():
+    """`tests/torch_threads.py` holds the test process to one intra-op
+    thread, and no test file has raised it since."""
+    assert torch.get_num_threads() == 1
