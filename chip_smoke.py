@@ -17,8 +17,13 @@ seconds when it ends:
            equality; K5 also along axis -2 with a lane stride, at a small
            odd shape and at the h15 four-step's 2^11 rows x 2^11 lanes),
            then its time per launch at n = 2^22 (K5 flat and with lanes);
-           then ops/ntt's four-step NTT and INTT of two 2^22 columns
-           against the flat radix-2 stage chain (four_step_check)
+           the fused NTT pass (ntt_pass) against its plain version at
+           every pass of ops/ntt's plan, both directions, at the h15
+           four-step's shape and flat at 2^3, 2^7 (batched), 2^11 and
+           2^12, and timed at 2^22, each of the four passes of a 2^22
+           NTT beside its bound; then ops/ntt's four-step NTT and INTT of
+           two 2^22 columns (the fused passes) against the flat radix-2
+           K5 stage chain (four_step_check)
   msm      the MSM's bucket kernels (bucket_acc, bucket_sum) and the
            tree-level K7 (xyzz_add_pairs) bit-equal to their plain versions
            on 2^16 points (random, skewed and all-equal digits, every
@@ -133,31 +138,32 @@ CHECK_N = (1 << 16) + 37
 # bucket_sum runs only where a bucket has more than msm.CHUNK members,
 # which the circuit's n = 2^10 does not promise
 OFF_PATH = ("mul3", "xyzz_add_mixed")
-# K5 runs flat (mul_add_sub) in the radix-2 transforms below n = 2^13 and
-# along axis -2 (mul_add_sub_lanes) in the four-step ones from 2^13 up:
-# every transform of the h15 path (n = 2^22) is four-step, a sharded
-# rank's are the mesh's four-step on 2^11-point radix-2 sub-transforms
-FLAT_ONLY = ("mul_add_sub_lanes",)
-LANES_ONLY = ("mul_add_sub",)
+# every transform of every path runs its radix-2 stages in fused passes
+# (ntt_pass): the flat ones below n = 2^13 (a sharded rank's 2^11-point
+# sub-transforms, the entry step's 2^7 INTT, the circuit's 2^10) and both
+# sides of the four-step from 2^13 up. K5's stages, flat (mul_add_sub) or
+# along axis -2 (mul_add_sub_lanes), run only in the checks, and a path
+# that launches one fails (_require_launched)
+K5_STAGES = ("mul_add_sub", "mul_add_sub_lanes")
 NOT_LAUNCHED = {
     # the entry step runs the Poseidon rounds (mul, add) and a 2^7 INTT
-    # (mul_add_sub, mul)
-    "entry": OFF_PATH + FLAT_ONLY + (
+    # (ntt_pass)
+    "entry": OFF_PATH + K5_STAGES + (
         "sub", "neg", "xyzz_add", "xyzz_add_affine2", "xyzz_add_pairs",
         "bucket_acc", "bucket_sum"),
-    "main": OFF_PATH + LANES_ONLY,
-    "prove_many": OFF_PATH + LANES_ONLY + ("xyzz_add_affine2",),
+    "main": OFF_PATH + K5_STAGES,
+    "prove_many": OFF_PATH + K5_STAGES + ("xyzz_add_affine2",),
     # one rank's sharded prove: no device_srs either
-    "sharded": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2",),
+    "sharded": OFF_PATH + K5_STAGES + ("xyzz_add_affine2",),
     # one rank's sharded prove at h6 (n = 2^13), whose MSM buckets need
     # not outgrow msm.CHUNK
-    "sharded_h6": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2", "bucket_sum"),
+    "sharded_h6": OFF_PATH + K5_STAGES + ("xyzz_add_affine2", "bucket_sum"),
     # prove_many's processes, one a card, added up
-    "prove_many_cards": OFF_PATH + LANES_ONLY + ("xyzz_add_affine2",),
+    "prove_many_cards": OFF_PATH + K5_STAGES + ("xyzz_add_affine2",),
     # n = 2^10
-    "circuit": OFF_PATH + FLAT_ONLY + ("xyzz_add_affine2", "bucket_sum"),
+    "circuit": OFF_PATH + K5_STAGES + ("xyzz_add_affine2", "bucket_sum"),
     # the set-up's or the dry run's device_srs launches xyzz_add_affine2
-    "mesh": OFF_PATH,
+    "mesh": OFF_PATH + K5_STAGES,
 }
 TIME_N = 1 << 22
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -505,6 +511,19 @@ def check_kernels():
                     1)]
     aff, xyzz = _rand_points(n, rng)
     mixed = _mixed_operands(xyzz[0], aff)
+    # the fused pass: every pass of ops/ntt's plan, both directions, at the
+    # h15 four-step's 2^11 rows x 2^11 lanes (both sides) and flat (lanes =
+    # 1) at 2^11 and 2^12, and batched at 2^3 and 2^7
+    plan22 = ntt.get_plan(22, "cuda")
+    pass_inputs = [(_rand_field(FR, 1 << 22, rng), 11, 1 << 11, plan22.p2,
+                    plan22.tw_f, plan22.tw_i),
+                   (_rand_field(FR, 3 << 11, rng), 11, 1,
+                    ntt.get_plan(11, "cuda"), None, None),
+                   (_rand_field(FR, 3 << 12, rng), 12, 1, plan, None, None),
+                   (_rand_field(FR, 37 << 3, rng), 3, 1,
+                    ntt.get_plan(3, "cuda"), None, None),
+                   (_rand_field(FR, 5 << 7, rng), 7, 1,
+                    ntt.get_plan(7, "cuda"), None, None)]
 
     checks = {}
 
@@ -529,6 +548,34 @@ def check_kernels():
         check("mul_add_sub_lanes", f"lanes={lanes},half={half}",
               lambda: kernels.butterfly_stage(FR.P, x, tw, half, step,
                                               lanes))
+    for x, log_rows, lanes, sub, mid_f, mid_i in pass_inputs:
+        passes = kernels.ntt_pass_plan(log_rows, lanes)
+        for invert in (False, True):
+            tw = sub.itw if invert else sub.tw
+            # (mul of the first pass, transposed last pass, packed in,
+            # packed out), as ops/ntt runs them: the four-step's first
+            # side (transposed, packed out) and second (times the mid
+            # twiddles, packed in), or flat (the inverse times 1/n)
+            if mid_f is not None:
+                mid = (mid_i if invert else mid_f).reshape(FR.L, -1)
+                sides = [(None, True, False, True), (mid, False, True, False)]
+            else:
+                sides = [(sub.n_inv[:, None] if invert else None, False,
+                          False, False)]
+            for mul, trans, packed_in, packed_out in sides:
+                for k, (s0, s1) in enumerate(passes):
+                    last = k == len(passes) - 1
+                    p_in, p_out = packed_in or k > 0, packed_out or not last
+                    xin = kernels.pack_words(x) if p_in else x
+                    check("ntt_pass", f"rows=2^{log_rows},lanes={lanes},"
+                          f"invert={invert},stages={s0 + 1}-{s1},"
+                          f"mul={mul is not None and k == 0},"
+                          f"transposed={trans and last},"
+                          f"packed={p_in},{p_out}",
+                          lambda: kernels.ntt_pass(
+                              FR.P, xin, tw, log_rows, lanes, s0, s1,
+                              k == 0, mul if k == 0 else None,
+                              trans and last, p_in, p_out))
     P, Q = xyzz
     check("xyzz_add", "specials", lambda: g1.xyzz_add(P, Q))
     check("xyzz_add_mixed", "specials", lambda: g1.xyzz_add_mixed(*mixed))
@@ -585,6 +632,22 @@ def check_kernels():
         2 * 16 * 4 * N + 16 * 4 * (1 << 10),
         (fr_ops["mul"] + 2 * fr_ops["addsub"]) * (N // 2), "fr",
         lanes=1 << 11)
+    # the h15 four-step's first pass (stages 1-6 of 2^11 rows x 2^11
+    # lanes, the bit-reversed gather, packed out); the bound counts each
+    # element read once at 64 B and written once at 32 B, and the products
+    # whose twiddle is not one (portbench/roofline.py's count, stage by
+    # stage)
+    px, sub = pass_inputs[0][0], pass_inputs[0][3]
+    first = kernels.ntt_pass_plan(11, 1 << 11)[0]
+    out["ntt_pass"] = rec(
+        "ntt_pass", "zprize_tpu/fields/pkern.py:172 (K5) x 6 stages, "
+        "zprize_tpu/ops/ntt.py _core_axis2",
+        lambda: kernels.ntt_pass(FR.P, px, sub.tw, 11, 1 << 11, *first,
+                                 True, packed_out=True),
+        (16 + 8) * 4 * N,
+        _pass_products(11, *first, N >> 11) * fr_ops["mul"], "fr",
+        lanes=1 << 11, stages=list(first),
+        h15_passes=_h15_passes(px, plan22, fr_ops["mul"]))
     out["mul3"] = rec("mul3", "zprize_tpu/fields/pkern.py:187",
                       lambda: kernels.mul3(FQ.P, fq_a, fq_b, fq_c),
                       4 * 24 * 4 * N, 2 * fq_ops["mul"] * N, "fq")
@@ -603,10 +666,54 @@ def check_kernels():
     for k, r in out.items():
         emit({"kernel_check": k, "equal": True, "cases": len(checks[k]),
               "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    del big, bigP, bigQ, big_aff, big_mixed, bx, lx, lane_inputs
+    del big, bigP, bigQ, big_aff, big_mixed, bx, lx, lane_inputs, px
+    del pass_inputs
     emit({"four_step_check": check_four_step(big_tw)})
     del big_tw
     torch.cuda.empty_cache()
+    return out
+
+
+def _pass_products(log_rows, s0, s1, columns):
+    """Fr products of stages s0+1 .. s1 of a length-2^log_rows radix-2
+    transform of `columns` columns whose twiddle is not one: stage s has
+    2^(log_rows-1) butterflies a column, 2^(log_rows-s) of them with j =
+    0."""
+    return columns * sum((1 << (log_rows - 1)) - (1 << (log_rows - s))
+                         for s in range(s0 + 1, s1 + 1))
+
+
+def _h15_passes(x, plan, mul_slots):
+    """ms per launch (CUDA events) and the bound of each of the four
+    passes of a 2^22 NTT of one column x (ops/ntt's four-step, packed
+    between passes), in order: [stages, ms, bound_ms]. Each pass reads
+    what the one before it wrote."""
+    from zprize_tpu_torch.fields import kernels
+    from zprize_tpu_torch.fields.mont import FR
+    from zprize_tpu_torch.tools.cudatime import time_ms
+    n = x.shape[1]
+    out = []
+    y = x
+    for side, (sub, lanes) in enumerate(((plan.p2, plan.p1.n),
+                                         (plan.p1, plan.p2.n))):
+        passes = kernels.ntt_pass_plan(sub.log_n, lanes)
+        for k, (s0, s1) in enumerate(passes):
+            last = k == len(passes) - 1
+            mid = plan.tw_f.reshape(FR.L, -1) if side == 1 and k == 0 \
+                else None
+            p_in, p_out = side == 1 or k > 0, side == 0 or not last
+            ms, nxt = time_ms(
+                lambda: kernels.ntt_pass(FR.P, y, sub.tw, sub.log_n, lanes,
+                                         s0, s1, k == 0, mid,
+                                         side == 0 and last, p_in, p_out),
+                10)
+            # 64 B an element unpacked, 32 B packed; the mid twiddles 64 B
+            byts = (4 - p_in - p_out + 2 * (mid is not None)) * 32 * n
+            prods = _pass_products(sub.log_n, s0, s1, n >> sub.log_n) \
+                + (n if mid is not None else 0)
+            bound = max(byts / HBM_BYTES_S, prods * mul_slots / int_ops_s())
+            out.append([[s0 + 1, s1], ms, bound * 1e3])
+            y = nxt
     return out
 
 
@@ -638,7 +745,7 @@ def check_four_step(tw):
         raise AssertionError("the 2^22 plan is not a 2^11 x 2^11 four-step")
     itw = poly.powers(FR, FR.scalar(pow(root_of_unity(log_n), -1, R_MOD),
                                     "cuda"), n // 2)
-    rev = torch.from_numpy(ntt._bit_reverse_indices(n)).cuda()
+    rev = kernels.bit_reverse_indices(log_n, "cuda")
     n_inv = FR.scalar(pow(n, -1, R_MOD), "cuda")
 
     def flat(a, table, invert):
@@ -1636,12 +1743,16 @@ def run_examples_and_micro():
 
 
 def _require_launched(path, counts):
-    """Every kernel that `path` runs must have launched in it."""
+    """Every kernel that `path` runs must have launched in it, and K5's
+    stages must not have: ntt_pass runs them."""
     from zprize_tpu_torch.fields import kernels
     missing = [k for k in kernels.KERNEL_NAMES
                if k not in NOT_LAUNCHED[path] and counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the {path} path: {missing}")
+    stages = {k: counts[k] for k in K5_STAGES if counts[k]}
+    if stages:
+        fail(f"K5 stages launched on the {path} path: {stages}")
 
 
 def _kernel_name(mangled):

@@ -82,6 +82,41 @@ def test_butterfly_stage_with_lanes_matches_plain(card, lanes, half):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("invert", [False, True])
+@pytest.mark.parametrize("log_rows,lanes,batch", [
+    (11, 1 << 11, 1),       # either side of the h15 four-step
+    (11, 1, 3), (12, 1, 2),  # flat: a sharded rank's sub-transforms, n <= 2^12
+    (3, 1, 37), (7, 1, 5)])  # flat and batched (2^7: the entry step's INTT)
+def test_ntt_pass_matches_plain(card, log_rows, lanes, batch, invert):
+    """The fused pass against its plain version at every pass of
+    `ntt_pass_plan`, with the layouts `ops/ntt` gives it: the first with
+    the bit-reversed gather, packed between passes; flat, the inverse
+    times 1/n; along axis -2, as the four-step's first side (the last
+    pass transposed, packed out) and its second (packed in, the first
+    pass times the mid twiddles)."""
+    sub = ntt.get_plan(log_rows, card)
+    tw = sub.itw if invert else sub.tw
+    x = _field(FR, batch * lanes << log_rows, 8 + log_rows, card)
+    if lanes > 1:
+        big = ntt.get_plan(2 * log_rows, card)
+        mid = (big.tw_i if invert else big.tw_f).reshape(FR.L, -1)
+        sides = [(None, True, False, True), (mid, False, True, False)]
+    else:
+        sides = [(sub.n_inv[:, None] if invert else None, False, False,
+                  False)]
+    passes = kernels.ntt_pass_plan(log_rows, lanes)
+    for mul, trans, packed_in, packed_out in sides:
+        for k, (s0, s1) in enumerate(passes):
+            last = k == len(passes) - 1
+            p_in = packed_in or k > 0
+            args = (FR.P, kernels.pack_words(x) if p_in else x, tw,
+                    log_rows, lanes, s0, s1, k == 0, mul if k == 0 else None,
+                    trans and last, p_in, packed_out or not last)
+            assert torch.equal(kernels.ntt_pass(*args),
+                               plain(kernels.ntt_pass, *args)), (s0, s1)
+
+
+@pytest.mark.cuda
 def test_four_step_transforms_match_plain(card):
     """The 2^13 plan is four-step (2^7 rows x 2^6 lanes, then 2^6 x
     2^7)."""

@@ -4,12 +4,14 @@ against the executable spec's domain (`zprize_tpu.ref.domain`, which the
 JAX NTT is pinned to; from 2^13, `FOUR_STEP_MIN_LOG`, both packages run
 the four-step, at 2^14 on a square split and at 2^15 on an unequal one),
 against `zprize_tpu.ops.ntt` itself, the sub-coset tables array for
-array, the four-step plan's mid twiddles, and K5's plain version with a
-lane stride. With the port's threshold lowered to 2^3 (`low_threshold`)
-the four-step and nested-split branches run at sizes where the JAX
-package runs radix-2 and compiles in seconds; there they are held to the
-JAX transforms, and the port's proof of the dry-run circuit (n = 16,
-every transform four-step) to the spec's bytes. Exact comparisons."""
+array, the four-step plan's mid twiddles, K5's plain version with a lane
+stride, and the fused NTT pass's plain version against the chain of K5
+stages, gather, twiddle product and transpose it replaces. With the
+port's threshold lowered to 2^3 (`low_threshold`) the four-step and
+nested-split branches run at sizes where the JAX package runs radix-2
+and compiles in seconds; there they are held to the JAX transforms, and
+the port's proof of the dry-run circuit (n = 16, every transform
+four-step) to the spec's bytes. Exact comparisons."""
 
 
 import copy
@@ -34,7 +36,7 @@ from zprize_tpu.ref.field import root_of_unity
 from zprize_tpu.ref.verifier import verify
 from zprize_tpu_torch.circuit import StandardComposer
 from zprize_tpu_torch.entry import dryrun_circuit
-from zprize_tpu_torch.fields import kernels
+from zprize_tpu_torch.fields import kernels, mont
 from zprize_tpu_torch.fields.mont import FR
 from zprize_tpu_torch.ops import ntt, poly
 from zprize_tpu_torch.params import FR_GENERATOR
@@ -199,20 +201,20 @@ def test_four_step_branches_match_jax_ntt(low_threshold, log_n):
 
 
 def test_four_step_mid_twiddles_are_powers():
-    """At 2^13 (n1 = 2^6, n2 = 2^7) the plan holds w^(+-i1*k2) at [k2,
-    i1], the inverse times 1/n, and no radix-2 table."""
+    """At 2^13 (n1 = 2^6, n2 = 2^7) the plan holds w^(+-i1*k2) at [i1,
+    k2], the inverse times 1/n, and no radix-2 table."""
     plan = ntt.get_plan(13, "cpu")
     n, n1, n2 = 1 << 13, 1 << 6, 1 << 7
     assert (plan.p1.n, plan.p2.n) == (n1, n2)
-    assert plan.tw is None and plan.itw is None and plan.bitrev is None
-    assert plan.tw_f.shape == plan.tw_i.shape == (FR.L, n2, n1)
+    assert plan.tw is None and plan.itw is None
+    assert plan.tw_f.shape == plan.tw_i.shape == (FR.L, n1, n2)
     w = root_of_unity(13)
     w_inv, n_inv = pow(w, -1, M), pow(n, -1, M)
     assert FR.from_mont_host(plan.tw_f.reshape(FR.L, -1)) == \
-        [pow(w, i1 * k2, M) for k2 in range(n2) for i1 in range(n1)]
+        [pow(w, i1 * k2, M) for i1 in range(n1) for k2 in range(n2)]
     assert FR.from_mont_host(plan.tw_i.reshape(FR.L, -1)) == \
         [pow(w_inv, i1 * k2, M) * n_inv % M
-         for k2 in range(n2) for i1 in range(n1)]
+         for i1 in range(n1) for k2 in range(n2)]
 
 
 @pytest.mark.parametrize("half,lanes,tw_step", [(1, 4, 3), (4, 8, 1),
@@ -244,6 +246,66 @@ def test_butterfly_stage_with_lanes(half, lanes, tw_step):
                                    tw_step)
     assert torch.equal(flat.reshape(t.shape).transpose(-1, -2)
                        .reshape(FR.L, -1), got)
+
+
+def _bit_reverse(log_n):
+    idx = np.arange(1 << log_n)
+    rev = np.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return torch.from_numpy(rev)
+
+
+@pytest.mark.parametrize("invert", [False, True])
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+@pytest.mark.parametrize("log_rows", range(1, 9))
+def test_ntt_pass_is_the_stage_chain(log_rows, lanes, invert):
+    """The fused pass (`kernels.ntt_pass`, its plain version here) against
+    the chain it replaces: the product by a scalar (1/n) or by an (R,
+    lanes) table (the mid twiddles, `mont_mul`), the bit-reversal row
+    gather (`index_select`), K5's stages one by one and the transposing
+    copy;
+    with and without the gather, forward and inverse, split into passes
+    as `ntt_pass_plan` splits it and at every other two-pass split, packed
+    between passes as `ops/ntt` runs them."""
+    L, R = FR.L, 1 << log_rows
+    batch = 3 if lanes < 32 else 1
+    a = FR.tensor(_ints(batch * R * lanes, 40 + log_rows), "cpu")
+    sub = ntt.get_plan(log_rows, "cpu")
+    tw = sub.itw if invert else sub.tw
+    table = FR.tensor(_ints(R * lanes, 80 + log_rows), "cpu")
+    plan = kernels.ntt_pass_plan(log_rows, lanes)
+    assert [s for s0, s1 in plan for s in range(s0 + 1, s1 + 1)] == \
+        list(range(1, log_rows + 1))
+    splits = [plan] + [[(0, k), (k, log_rows)] for k in range(1, log_rows)]
+    for bitrev in (False, True):
+        for mul, transpose in ((None, False), (sub.n_inv[:, None], False),
+                               (table, lanes > 1)):
+            want = a.reshape(L, batch, R * lanes)
+            if mul is not None:
+                want = mont.mont_mul(FR, want, mul[:, None, :])
+            want = want.reshape(L, batch, R, lanes)
+            if bitrev:
+                want = want.index_select(2, _bit_reverse(log_rows))
+            want = want.reshape(L, -1)
+            for s in range(1, log_rows + 1):
+                want = kernels.butterfly_stage(FR.P, want, tw, 1 << (s - 1),
+                                               R >> s, lanes)
+            want = want.reshape(L, batch, R, lanes)
+            if transpose:
+                want = want.transpose(-1, -2)
+            want = want.reshape(L, -1)
+            for split in splits:
+                x = a
+                for k, (s0, s1) in enumerate(split):
+                    last = k == len(split) - 1
+                    x = kernels.ntt_pass(
+                        FR.P, x, tw, log_rows, lanes, s0, s1,
+                        bitrev and k == 0, mul if k == 0 else None,
+                        transpose and last, packed_in=k > 0,
+                        packed_out=not last)
+                    assert x.shape[0] == (L if last else L // 2)
+                assert torch.equal(x, want), (bitrev, split)
 
 
 def test_dryrun_proof_through_four_step_equals_spec(low_threshold, srs_1k):

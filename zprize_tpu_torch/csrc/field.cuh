@@ -7,14 +7,13 @@
 // Montgomery R is 2^256 (Fr) / 2^384 (Fq) for both packings, so the values
 // are the same bits.
 //
-// Fr runs the CIOS product below in C on 32x32->64-bit products. Fq, which
-// carries every curve kernel, runs explicit carry chains in inline PTX
+// Both fields run the CIOS product in explicit carry chains of inline PTX
 // (mad.lo.cc / madc.hi.cc / addc.cc): the partial products of a row are
 // split into the even and the odd words of `a`, each summed by its own chain
 // (the design of sppark's ff/mont_t.cuh), and the shift of a row rides in
-// the addends of the next row's multiply-adds. A 12-word product is 588
+// the addends of the next row's multiply-adds. A 12-word (Fq) product is 588
 // multiply-adds (576 for the 32x32-bit halves of a*b and m*p, 12 for m)
-// and about 60 adds. ptxas fuses each lo/hi pair into one
+// and about 60 adds; an 8-word (Fr) one 264 and about 40. ptxas fuses each lo/hi pair into one
 // IMAD.WIDE.U32(.X), which issues at half the IMAD rate on sm_90 (the
 // int_rate line of chip_smoke.py), so 588 is also the count of IMAD issue
 // slots. Each asm block holds one whole chain: the carry flag
@@ -56,98 +55,18 @@ struct Fq {
   __device__ static __forceinline__ uint32_t mod(int i) { return FQ_MOD[i]; }
 };
 
-// r = t - p if (hi or t >= p) else t; r may alias t.
-template <class F>
-__device__ __forceinline__ void cond_sub(uint32_t* r, const uint32_t* t,
-                                         uint32_t hi) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; j++) {
-    uint64_t s = (uint64_t)t[j] - F::mod(j) - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  const bool take = hi != 0 || borrow == 0;
-#pragma unroll
-  for (int j = 0; j < F::N; j++) r[j] = take ? d[j] : t[j];
-}
-
-// Montgomery product a*b*R^-1 mod p (CIOS). p < R/4 for both fields, so
-// the running value stays below 2p and one conditional subtract reduces it.
-// r may alias a or b: it is written last.
+// a*b*R^-1 mod p (Montgomery product), a + b mod p, a - b mod p, each
+// specialised for both fields below; r may alias a or b: it is written
+// last.
 template <class F>
 __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a,
-                                         const uint32_t* b) {
-  constexpr int N = F::N;
-  uint32_t t[N + 2];
-#pragma unroll
-  for (int i = 0; i < N + 2; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < N; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; j++) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * F::NP0;
-    s = (uint64_t)m * F::mod(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; j++) {
-      s = (uint64_t)m * F::mod(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
-  }
-  cond_sub<F>(r, t, t[N]);
-}
-
+                                         const uint32_t* b);
 template <class F>
 __device__ __forceinline__ void add_mod(uint32_t* r, const uint32_t* a,
-                                        const uint32_t* b) {
-  uint32_t s[F::N];
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; j++) {
-    uint64_t v = (uint64_t)a[j] + b[j] + c;
-    s[j] = (uint32_t)v;
-    c = (uint32_t)(v >> 32);
-  }
-  cond_sub<F>(r, s, c);
-}
-
+                                        const uint32_t* b);
 template <class F>
 __device__ __forceinline__ void sub_mod(uint32_t* r, const uint32_t* a,
-                                        const uint32_t* b) {
-  uint32_t d[F::N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; j++) {
-    uint64_t v = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  if (borrow) {
-    uint32_t c = 0;
-#pragma unroll
-    for (int j = 0; j < F::N; j++) {
-      uint64_t v = (uint64_t)d[j] + F::mod(j) + c;
-      d[j] = (uint32_t)v;
-      c = (uint32_t)(v >> 32);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < F::N; j++) r[j] = d[j];
-}
+                                        const uint32_t* b);
 
 template <class F>
 __device__ __forceinline__ bool is_zero(const uint32_t* a) {
@@ -455,6 +374,219 @@ __device__ __forceinline__ void sub_mod<Fq>(uint32_t* r, const uint32_t* a,
   fq::add_p_if(d, borrow);
 #pragma unroll
   for (int j = 0; j < 12; j++) r[j] = d[j];
+}
+
+// ---------------------------------------------------------------------------
+// Fr in PTX carry chains, the design of the Fq chains below on 8 words.
+// Bounds: r < 2^255 (its top word 0x73eda753 < 2^31), so a + b < 2r < 2^256,
+// and a CIOS row's running value t + a*b_i + m*r < 2r + 2r*2^32 < 2^288 fits
+// the 9 words of the two accumulators; the chains whose last carry is
+// provably 0 end without one.
+// ---------------------------------------------------------------------------
+namespace fr {
+
+// acc[0..7] += (v[0], v[2], v[4], v[6]) * s, word pair 2j getting
+// v[2j] * s; the carry out goes into `top`
+__device__ __forceinline__ void mac_even(uint32_t* acc, uint32_t& top,
+                                         const uint32_t* v, uint32_t s) {
+  asm volatile(
+      "mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+      "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+      "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+      "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+      "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+      "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+        "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(top)
+      : "r"(v[0]), "r"(v[2]), "r"(v[4]), "r"(v[6]), "r"(s));
+}
+
+// the same without a carry out (the sum fits in 8 words)
+__device__ __forceinline__ void mac_odd(uint32_t* acc, const uint32_t* v,
+                                        uint32_t s) {
+  asm volatile(
+      "mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+      "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+      "madc.hi.u32 %7, %11, %12, %7;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+        "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
+      : "r"(v[0]), "r"(v[2]), "r"(v[4]), "r"(v[6]), "r"(s));
+}
+
+// y0 += x[1], then x = (x >> 64) + (v[0], v[2], v[4], v[6]) * s with the
+// carry of the first add
+__device__ __forceinline__ void shift_mac(uint32_t& y0, uint32_t* x,
+                                          const uint32_t* v, uint32_t s) {
+  asm volatile(
+      "add.cc.u32 %0, %0, %2;\n\t"
+      "madc.lo.cc.u32 %1, %9, %13, %3;\n\t"
+      "madc.hi.cc.u32 %2, %9, %13, %4;\n\t"
+      "madc.lo.cc.u32 %3, %10, %13, %5;\n\t"
+      "madc.hi.cc.u32 %4, %10, %13, %6;\n\t"
+      "madc.lo.cc.u32 %5, %11, %13, %7;\n\t"
+      "madc.hi.cc.u32 %6, %11, %13, %8;\n\t"
+      "madc.lo.cc.u32 %7, %12, %13, 0;\n\t"
+      "madc.hi.u32 %8, %12, %13, 0;"
+      : "+r"(y0), "+r"(x[0]), "+r"(x[1]), "+r"(x[2]), "+r"(x[3]), "+r"(x[4]),
+        "+r"(x[5]), "+r"(x[6]), "+r"(x[7])
+      : "r"(v[0]), "r"(v[2]), "r"(v[4]), "r"(v[6]), "r"(s));
+}
+
+// e[k] += o[k + 1] for k < 7, the carry into e[7]
+__device__ __forceinline__ void merge(uint32_t* e, const uint32_t* o) {
+  asm volatile(
+      "add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]),
+        "+r"(e[5]), "+r"(e[6]), "+r"(e[7])
+      : "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]),
+        "r"(o[7]));
+}
+
+// d -= b; borrow = 0xffffffff if it borrowed, else 0
+__device__ __forceinline__ void sub_words(uint32_t* d, uint32_t& borrow,
+                                          const uint32_t* b) {
+  borrow = 0;
+  asm volatile(
+      "sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, %8, 0;"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(borrow)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+}
+
+// s += b (no carry out: a + b < 2r < 2^256)
+__device__ __forceinline__ void add_words(uint32_t* s, const uint32_t* b) {
+  asm volatile(
+      "add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, %15;"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]),
+        "+r"(s[5]), "+r"(s[6]), "+r"(s[7])
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+}
+
+// d += r if bw != 0 (one predicated chain): the fix-up of a subtraction
+// that borrowed; the carry out is dropped, so d wraps back below r
+__device__ __forceinline__ void add_p_if(uint32_t* d, uint32_t bw) {
+  asm volatile(
+      "{\n\t"
+      ".reg .pred bz;\n\t"
+      "setp.ne.u32 bz, %8, 0;\n\t"
+      "@bz add.cc.u32 %0, %0, %9;\n\t"
+      "@bz addc.cc.u32 %1, %1, %10;\n\t"
+      "@bz addc.cc.u32 %2, %2, %11;\n\t"
+      "@bz addc.cc.u32 %3, %3, %12;\n\t"
+      "@bz addc.cc.u32 %4, %4, %13;\n\t"
+      "@bz addc.cc.u32 %5, %5, %14;\n\t"
+      "@bz addc.cc.u32 %6, %6, %15;\n\t"
+      "@bz addc.u32 %7, %7, %16;\n\t"
+      "}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(bw), "r"(FR_MOD[0]), "r"(FR_MOD[1]), "r"(FR_MOD[2]),
+        "r"(FR_MOD[3]), "r"(FR_MOD[4]), "r"(FR_MOD[5]), "r"(FR_MOD[6]),
+        "r"(FR_MOD[7]));
+}
+
+
+// t = t - r if t >= r, for t < 2r
+__device__ __forceinline__ void reduce(uint32_t* t) {
+  uint32_t bw;
+  sub_words(t, bw, FR_MOD);
+  add_p_if(t, bw);
+}
+
+// one CIOS row after the first, as fq::row: y the accumulator of the even
+// word positions, x the odd one
+__device__ __forceinline__ void row(uint32_t* y, uint32_t* x,
+                                   const uint32_t* a, uint32_t bi) {
+  shift_mac(y[0], x, a + 1, bi);
+  mac_even(y, x[7], a, bi);
+  const uint32_t m = y[0] * Fr::NP0;
+  mac_odd(x, FR_MOD + 1, m);
+  mac_even(y, x[7], FR_MOD, m);
+}
+
+}  // namespace fr
+
+template <>
+__device__ __forceinline__ void mont_mul<Fr>(uint32_t* r, const uint32_t* a,
+                                             const uint32_t* b) {
+  uint32_t e[8], o[8];
+  const uint32_t b0 = b[0];
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    e[j] = a[j] * b0;
+    e[j + 1] = __umulhi(a[j], b0);
+    o[j] = a[j + 1] * b0;
+    o[j + 1] = __umulhi(a[j + 1], b0);
+  }
+  const uint32_t m = e[0] * Fr::NP0;
+  fr::mac_odd(o, FR_MOD + 1, m);
+  fr::mac_even(e, o[7], FR_MOD, m);
+#pragma unroll
+  for (int i = 1; i < 8; i += 2) {
+    fr::row(o, e, a, b[i]);
+    if (i + 1 < 8) fr::row(e, o, a, b[i + 1]);
+  }
+  // after row 7 the even positions are in o (o[0] = 0): result = e + o / 2^32
+  fr::merge(e, o);
+  fr::reduce(e);
+#pragma unroll
+  for (int j = 0; j < 8; j++) r[j] = e[j];
+}
+
+template <>
+__device__ __forceinline__ void add_mod<Fr>(uint32_t* r, const uint32_t* a,
+                                            const uint32_t* b) {
+  uint32_t s[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) s[j] = a[j];
+  fr::add_words(s, b);
+  fr::reduce(s);
+#pragma unroll
+  for (int j = 0; j < 8; j++) r[j] = s[j];
+}
+
+template <>
+__device__ __forceinline__ void sub_mod<Fr>(uint32_t* r, const uint32_t* a,
+                                            const uint32_t* b) {
+  uint32_t d[8], borrow;
+#pragma unroll
+  for (int j = 0; j < 8; j++) d[j] = a[j];
+  fr::sub_words(d, borrow, b);
+  fr::add_p_if(d, borrow);
+#pragma unroll
+  for (int j = 0; j < 8; j++) r[j] = d[j];
 }
 
 // ---------------------------------------------------------------------------

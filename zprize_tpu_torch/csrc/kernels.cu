@@ -8,6 +8,7 @@
 //   zk_sub             K3 pkern.sub            a-b             Fr, Fq
 //   zk_neg             K4 pkern.neg            -a              Fr, Fq
 //   zk_butterfly_stage K5 pkern.mul_add_sub    (u+vw, u-vw)    Fr
+//   zk_ntt_pass        K5's NTT stages, several in one launch          Fr
 //   zk_mul3            K6 pkern.mul3           a*b*c*R^-2      Fr, Fq
 //   zk_xyzz_add        K7 pkern.xyzz_add       xyzz + xyzz     Fq
 //   zk_xyzz_add_pairs  K7 over one tree level (adjacent column pairs)
@@ -34,6 +35,8 @@
 // so no slot grid is padded and no gathered copy is written. Every
 // launcher returns cudaGetLastError().
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "field.cuh"
 
@@ -130,6 +133,196 @@ butterfly_stage_kernel(const uint32_t* __restrict__ a,
   store_fe<8>(out, n, iu, r);
   sub_mod<Fr>(r, u, vw);
   store_fe<8>(out, n, iv, r);
+}
+
+// Fused NTT pass (ntt_pass): stages s0+1 .. s1 of the radix-2 DIT schedule
+// that K5 runs one launch a stage (`zprize_tpu/fields/pkern.py:172`, chained
+// by `zprize_tpu/ops/ntt.py`'s `_core` and `_core_axis2`), over a
+// (16, batch, R, M) Fr array along its R = 2^log_rows rows, M = 2^log_lanes
+// lanes a row. Position p of the transform lies in row p, or, with `bitrev`
+// (first pass only, s0 = 0), in row bitrev(p): the bit-reversal gather of
+// the radix-2 transform. Stage s pairs positions blk*2^s + j and
+// blk*2^s + j + 2^(s-1) with w = tw[j * (R >> s)], as K5 does.
+//
+// Stages s0+1 .. s1 keep the bits of p outside [s0, s1) fixed, so one block
+// takes a tile of 2^(s1-s0) positions ("mid") x G consecutive low positions
+// ("lo") x m consecutive lanes x C batch items, at most 2^kPassTileLog
+// elements: it loads the tile once into shared memory, optionally times
+// `mul` (one Fr scalar, or an (R, M) table indexed [row, lane] of the
+// input: the four-step's mid twiddles, or 1/n), runs every stage of the
+// pass there with a __syncthreads between stages, and stores it once,
+// optionally transposed to (batch, M, R). So a 2^11-point transform costs
+// one or two passes over device memory in place of 11 K5 launches, and the
+// gather, the twiddle product and the transposing copy that surrounded
+// those stages cost none (1/n scales the input, not the output: the
+// transform is linear). Between the
+// passes of one transform the array is kept packed, (8, N) words of two
+// limbs each (`packed_in`, `packed_out`), so those passes move 32 B an
+// element where the ends move 64.
+//
+// Bound: a pass moves 64-128 B an element; a butterfly takes one Fr product
+// (264 multiply-add issue slots, field.cuh) and an add and a subtract, so a
+// pass of 5-6 stages needs about as long for its products as for its bytes,
+// and, since a block loads, computes and stores in turn, it pays roughly
+// the sum. The design keeps the operands in shared memory (word k of tile
+// element e at k * stride + e + e/32, so strided rows and bit-reversed
+// positions spread over the banks), skips the product where the twiddle is
+// one (every butterfly of stage 1, and whole warps later), and reads each
+// twiddle from the small sub-transform table, which stays in L1/L2. The tile
+// takes at least 8 lanes (or, for a transposed store, 8 consecutive rows)
+// where there are that many, so every limb row of a load or a store is a
+// whole 32-byte sector, and blocks that share the lines of a transposed
+// store run side by side.
+constexpr int kPassThreads = 256;
+constexpr int kPassTileLog = 11;
+
+__device__ __forceinline__ int pass_slot(int e) { return e + (e >> 5); }
+
+// Montgomery one of Fr (2^256 mod r)
+__device__ __forceinline__ bool is_fr_one(const uint32_t* w) {
+  return ((w[0] ^ 0xfffffffeu) | (w[1] ^ 0x00000001u) | (w[2] ^ 0x00034802u) |
+          (w[3] ^ 0x5884b7fau) | (w[4] ^ 0xecbc4ff5u) | (w[5] ^ 0x998c4fefu) |
+          (w[6] ^ 0xacc5056fu) | (w[7] ^ 0x1824b159u)) == 0;
+}
+
+// the low `bits` bits of x reversed
+__device__ __forceinline__ long long rev_bits(long long x, int bits) {
+  return bits ? (long long)(__brevll((unsigned long long)x) >> (64 - bits))
+              : 0;
+}
+
+struct PassTile {
+  int log_t, log_g, log_m, log_c;
+};
+
+__global__ void __launch_bounds__(kPassThreads)
+ntt_pass_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+                long long batch, int log_rows, int log_lanes, int s0, int s1,
+                PassTile tile, int bitrev, const uint32_t* __restrict__ tw,
+                long long tw_n, const uint32_t* __restrict__ mul,
+                long long mul_n, int transpose, int packed_in,
+                int packed_out) {
+  extern __shared__ uint32_t sm[];
+  const int log_t = tile.log_t, log_g = tile.log_g, log_m = tile.log_m,
+            log_c = tile.log_c;
+  const int E = 1 << (log_c + log_t + log_g + log_m);
+  const int stride = E + (E >> 5);
+  const long long n = batch << (log_rows + log_lanes);
+  // block -> (batch items, high positions, lanes, low positions): blocks
+  // that write the neighbouring rows of a transposed store run together,
+  // so their partial lines meet in L2
+  long long blk = blockIdx.x;
+  const int lane_bits = log_lanes - log_m, lo_bits = s0 - log_g,
+            hi_bits = log_rows - s1;
+  const long long lo0 = (blk & ((1LL << lo_bits) - 1)) << log_g;
+  blk >>= lo_bits;
+  const long long lane0 = (blk & ((1LL << lane_bits) - 1)) << log_m;
+  blk >>= lane_bits;
+  const long long hi = blk & ((1LL << hi_bits) - 1);
+  const long long b0 = (blk >> hi_bits) << log_c;
+  const int m = 1 << log_m, g = 1 << log_g, t = 1 << log_t;
+
+  // load: tile element e = ((c * t + mid) * g + lo) * m + lane; with
+  // `bitrev` the loop runs over rows in order (row r holds position
+  // bitrev(r), so neighbouring threads read neighbouring rows)
+  for (int i = threadIdx.x; i < E; i += kPassThreads) {
+    const int lane = i & (m - 1), lo = (i >> log_m) & (g - 1);
+    const int mr = (i >> (log_m + log_g)) & (t - 1);
+    const int c = i >> (log_m + log_g + log_t);
+    const long long b = b0 + c;
+    if (b >= batch) continue;
+    int mid;
+    long long row;
+    if (bitrev) {
+      mid = (int)rev_bits(mr, log_t);
+      row = ((long long)mr << hi_bits) | rev_bits(hi, hi_bits);
+    } else {
+      mid = mr;
+      row = (hi << s1) | ((long long)mid << s0) | (lo0 + lo);
+    }
+    uint32_t w[8];
+    const long long col =
+        (((b << log_rows) | row) << log_lanes) | (lane0 + lane);
+    if (packed_in) {
+#pragma unroll
+      for (int k = 0; k < 8; k++) w[k] = a[k * n + col];
+    } else {
+      load_fe<8>(w, a, n, col);
+    }
+    if (mul) {
+      uint32_t x[8];
+      load_fe<8>(x, mul, mul_n,
+                 mul_n == 1 ? 0 : (row << log_lanes) | (lane0 + lane));
+      mont_mul<Fr>(w, w, x);
+    }
+    const int e = (((c << log_t | mid) << log_g | lo) << log_m) | lane;
+#pragma unroll
+    for (int k = 0; k < 8; k++) sm[k * stride + pass_slot(e)] = w[k];
+  }
+  __syncthreads();
+
+  for (int q = 1; q <= log_t; q++) {
+    const int s = s0 + q, hq = 1 << (q - 1);
+    for (int f = threadIdx.x; f < (E >> 1); f += kPassThreads) {
+      const int lane = f & (m - 1), lo = (f >> log_m) & (g - 1);
+      const int pair = (f >> (log_m + log_g)) & ((t >> 1) - 1);
+      const int c = f >> (log_m + log_g + log_t - 1);
+      const int jj = pair & (hq - 1);
+      const int umid = ((pair >> (q - 1)) << q) | jj;
+      const int eu = (((c << log_t | umid) << log_g | lo) << log_m) | lane;
+      const int ev = eu + (hq << (log_g + log_m));
+      const long long j = ((long long)jj << s0) | (lo0 + lo);
+      uint32_t u[8], v[8], w[8], r[8];
+      load_fe<8>(w, tw, tw_n, j << (log_rows - s));
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        u[k] = sm[k * stride + pass_slot(eu)];
+        v[k] = sm[k * stride + pass_slot(ev)];
+      }
+      if (!is_fr_one(w)) mont_mul<Fr>(v, v, w);
+      add_mod<Fr>(r, u, v);
+      sub_mod<Fr>(v, u, v);
+#pragma unroll
+      for (int k = 0; k < 8; k++) {
+        sm[k * stride + pass_slot(eu)] = r[k];
+        sm[k * stride + pass_slot(ev)] = v[k];
+      }
+    }
+    __syncthreads();
+  }
+
+  // store; a transposed store runs over (c, lane, mid, lo) so that
+  // neighbouring threads write neighbouring rows
+  for (int i = threadIdx.x; i < E; i += kPassThreads) {
+    int lane, lo, mid, c;
+    if (transpose) {
+      lo = i & (g - 1);
+      mid = (i >> log_g) & (t - 1);
+      lane = (i >> (log_g + log_t)) & (m - 1);
+    } else {
+      lane = i & (m - 1);
+      lo = (i >> log_m) & (g - 1);
+      mid = (i >> (log_m + log_g)) & (t - 1);
+    }
+    c = i >> (log_m + log_g + log_t);
+    const long long b = b0 + c;
+    if (b >= batch) continue;
+    const int e = (((c << log_t | mid) << log_g | lo) << log_m) | lane;
+    uint32_t w[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) w[k] = sm[k * stride + pass_slot(e)];
+    const long long p = (hi << s1) | ((long long)mid << s0) | (lo0 + lo);
+    const long long ln = lane0 + lane;
+    const long long col = transpose
+                              ? (((b << log_lanes) | ln) << log_rows) | p
+                              : (((b << log_rows) | p) << log_lanes) | ln;
+    if (packed_out) {
+#pragma unroll
+      for (int k = 0; k < 8; k++) out[k * n + col] = w[k];
+    } else {
+      store_fe<8>(out, n, col, w);
+    }
+  }
 }
 
 __device__ __forceinline__ void load_xyzz(Xyzz& p, const uint32_t* base,
@@ -387,6 +580,52 @@ int zk_butterfly_stage(const void* a, void* out, long long n, int log_half,
   butterfly_stage_kernel<<<blocks_for(n >> 1, kThreads), kThreads, 0, s>>>(
       static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out), n,
       log_half, log_lanes, static_cast<const uint32_t*>(tw), tw_n, tw_step);
+  return (int)cudaGetLastError();
+}
+
+// a: (16, batch * 2^log_rows * 2^log_lanes), or (8, ..) with packed_in;
+// out: (16, ..) or (8, ..) with packed_out, (batch, R, M) or with
+// `transpose` (batch, M, R); tw: (16, tw_n); mul: null, or (16, mul_n) with
+// mul_n 1 or R * M, multiplying the input. The tile follows from the shape: 2^(s1
+// - s0) positions, then up to 8 consecutive rows for a transposed store,
+// then lanes, then low positions, then batch items, to 2^kPassTileLog
+// elements.
+int zk_ntt_pass(const void* a, void* out, long long batch, int log_rows,
+                int log_lanes, int s0, int s1, int bitrev, const void* tw,
+                long long tw_n, const void* mul, long long mul_n,
+                int transpose, int packed_in, int packed_out,
+                void* stream) {
+  const int log_t = s1 - s0;
+  if (s0 < 0 || log_t < 0 || s1 > log_rows || log_t > kPassTileLog ||
+      (bitrev && s0 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return 0;
+  const int cap = kPassTileLog - log_t;
+  PassTile tile;
+  tile.log_t = log_t;
+  const int keep_g = transpose ? std::min(std::min(s0, 3), cap) : 0;
+  tile.log_m = std::min(log_lanes, cap - keep_g);
+  tile.log_g = std::min(s0, cap - tile.log_m);
+  int log_b = 0;
+  while ((1LL << log_b) < batch) log_b++;
+  tile.log_c = std::min(cap - tile.log_m - tile.log_g, log_b);
+  const long long groups = (batch + (1LL << tile.log_c) - 1) >> tile.log_c;
+  const long long blocks =
+      groups << ((log_rows - s1) + (s0 - tile.log_g) + (log_lanes - tile.log_m));
+  const int E = 1 << (tile.log_c + log_t + tile.log_g + tile.log_m);
+  const int smem = 8 * (E + (E >> 5)) * (int)sizeof(uint32_t);
+  constexpr int kMaxTile = 1 << kPassTileLog;
+  cudaError_t err = cudaFuncSetAttribute(
+      ntt_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      8 * (kMaxTile + (kMaxTile >> 5)) * (int)sizeof(uint32_t));
+  if (err != cudaSuccess) return (int)err;
+  auto s = static_cast<cudaStream_t>(stream);
+  ntt_pass_kernel<<<(unsigned)blocks, kPassThreads, smem, s>>>(
+      static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out), batch,
+      log_rows, log_lanes, s0, s1, tile, bitrev,
+      static_cast<const uint32_t*>(tw), tw_n,
+      static_cast<const uint32_t*>(mul), mul_n, transpose, packed_in,
+      packed_out);
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,8 @@ Every wrapper takes limbs-leading int32 tensors of 16-bit limbs:
     version); a build or launch error raises — there is no fallback;
   * on a CPU tensor it runs the plain version (`limbmath.py`).
 
-The wrappers here are K1-K6 of `zprize_tpu/fields/pkern.py`; the curve
+The wrappers here are K1-K6 of `zprize_tpu/fields/pkern.py` and the fused
+NTT pass that runs K5's stages several at a time (`ntt_pass`); the curve
 kernels K7-K9 and K7's tree level are wrapped in `curve/g1.py`, the MSM
 bucket kernels in `ops/msm.py`.
 """
@@ -43,9 +44,9 @@ LOCK_TIMEOUT_S = 600
 BUILD_TIMEOUT_S = 600
 
 KERNEL_NAMES = ("mul", "add", "sub", "neg", "mul_add_sub",
-                "mul_add_sub_lanes", "mul3", "xyzz_add", "xyzz_add_mixed",
-                "xyzz_add_affine2", "xyzz_add_pairs", "bucket_acc",
-                "bucket_sum")
+                "mul_add_sub_lanes", "ntt_pass", "mul3", "xyzz_add",
+                "xyzz_add_mixed", "xyzz_add_affine2", "xyzz_add_pairs",
+                "bucket_acc", "bucket_sum")
 # launches of each CUDA kernel since the last reset_counts(); K5's flat
 # stages (mul_add_sub) and its stages along axis -2 (mul_add_sub_lanes)
 # are counted apart
@@ -187,6 +188,8 @@ def load_library():
     h.zk_mul3.argtypes = [I, P, LL, P, LL, P, LL, P, LL, P]
     h.zk_neg.argtypes = [I, P, LL, P, LL, P]
     h.zk_butterfly_stage.argtypes = [P, P, LL, I, I, P, LL, LL, P]
+    h.zk_ntt_pass.argtypes = [P, P, LL, I, I, I, I, I, P, LL, P, LL, I, I,
+                              I, P]
     h.zk_xyzz_add.argtypes = [P, P, P, LL, P]
     h.zk_xyzz_add_mixed.argtypes = [P, P, P, P, LL, P]
     h.zk_xyzz_add_affine2.argtypes = [P, P, P, P, P, LL, P]
@@ -194,7 +197,8 @@ def load_library():
     h.zk_bucket_acc.argtypes = [P, P, P, P, P, P, LL, LL, P]
     h.zk_bucket_sum.argtypes = [P, LL, P, P, P, P, LL, LL, P]
     for name in ("zk_mul", "zk_add", "zk_sub", "zk_mul3", "zk_neg",
-                 "zk_butterfly_stage", "zk_xyzz_add", "zk_xyzz_add_mixed",
+                 "zk_butterfly_stage", "zk_ntt_pass", "zk_xyzz_add",
+                 "zk_xyzz_add_mixed",
                  "zk_xyzz_add_affine2", "zk_xyzz_add_pairs", "zk_bucket_acc",
                  "zk_bucket_sum"):
         getattr(h, name).restype = I
@@ -330,4 +334,119 @@ def butterfly_stage(P, a, tw, half, tw_step, lanes=1):
     name = "mul_add_sub" if lanes == 1 else "mul_add_sub_lanes"
     check(rc, name)
     count(name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused NTT pass: several of K5's stages on a tile in shared memory
+# ---------------------------------------------------------------------------
+
+# a pass's tile holds at most 2^PASS_TILE_LOG elements (`kPassTileLog` in
+# csrc/kernels.cu), of which at least min(lanes, 8) lanes a row: a whole
+# 32-byte sector of each limb row
+PASS_TILE_LOG = 11
+
+
+def ntt_pass_plan(log_rows, lanes):
+    """The stages of a radix-2 transform of 2^log_rows rows of `lanes`
+    lanes, split into passes: [(s0, s1), ...], pass k running stages s0+1
+    .. s1, as few passes as the tile allows and as even as can be, the
+    first the longest. One pass of no stage where log_rows = 0."""
+    per = PASS_TILE_LOG - min(lanes.bit_length() - 1, 3)
+    k = max(-(-log_rows // per), 1)
+    bounds = [-(-log_rows * i // k) for i in range(k + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def bit_reverse_indices(log_n, device="cpu"):
+    """bitrev(i) for i < 2^log_n, int64."""
+    i = torch.arange(1 << log_n, device=device)
+    rev = torch.zeros_like(i)
+    for b in range(log_n):
+        rev |= ((i >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def pack_words(x):
+    """(16, N) 16-bit limbs -> (8, N) int32 words of two limbs each (limb
+    2k in the low half of word k), the layout between the passes of one
+    transform."""
+    w = (x[0::2].to(torch.int64) & 0xFFFF) | (x[1::2].to(torch.int64) << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_words(w):
+    """(8, N) words -> (16, N) int64 limbs."""
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(
+        2 * w.shape[0], -1)
+
+
+def ntt_pass_plain(P, a, tw, log_rows, lanes, s0, s1, bitrev=False,
+                   mul=None, transpose=False):
+    """Plain version of the fused pass on (16, N) int64, N = batch * R *
+    lanes with R = 2^log_rows: the product by `mul` ((16, 1), or (16, R *
+    lanes) indexed [row, lane] of the input), the bit-reversal row gather
+    (`bitrev`), K5's stages s0+1 .. s1 through `butterfly_stage_plain`
+    (stage s: half = 2^(s-1), twiddle step R >> s) and the transposing
+    copy to (batch, lanes, R) (`transpose`)."""
+    L, N = a.shape
+    R = 1 << log_rows
+    x = a
+    if mul is not None:
+        x = limbmath.mul(P, x, mul.repeat(1, N // mul.shape[1]))
+    if bitrev:
+        x = x.reshape(L, -1, R, lanes).index_select(
+            2, bit_reverse_indices(log_rows, a.device)).reshape(L, N)
+    for s in range(s0 + 1, s1 + 1):
+        x = butterfly_stage_plain(P, x, tw, 1 << (s - 1), R >> s, lanes)
+    if transpose:
+        x = x.reshape(L, -1, R, lanes).transpose(-1, -2).reshape(L, N)
+    return x
+
+
+def ntt_pass(P, a, tw, log_rows, lanes, s0, s1, bitrev=False, mul=None,
+             transpose=False, packed_in=False, packed_out=False):
+    """Stages s0+1 .. s1 of K5's radix-2 schedule in one launch (counted
+    as "ntt_pass"): a is (16, N), the flattened (16, batch, R, lanes) with
+    R = 2^log_rows, transformed along its rows (axis -2) with `lanes` (a
+    power of two) columns a row, as `butterfly_stage(P, x, tw, 2^(s-1), R
+    >> s, lanes)` for each stage s; tw is the (16, >= R/2) table w^j of
+    the length-R transform. `mul` ((16, 1), or (16, R * lanes) indexed
+    [row, lane]) multiplies the input as it is read; with `bitrev` (s0 =
+    0 only) the pass reads row bitrev(p) for position p (the radix-2
+    transform's gather); `transpose` stores the output as (batch, lanes,
+    R). With `packed_in` (`packed_out`) the input (output) is (8, N) in
+    `pack_words`' layout, as between two passes of one transform. Returns
+    a new tensor; a pass of no stage (s0 = s1) copies, times `mul`."""
+    check_operand(a, 8 if packed_in else 16, a.device)
+    check_operand(tw, 16, a.device)
+    N, rows = a.shape[1], 1 << log_rows
+    if lanes & (lanes - 1) or N % (rows * lanes) \
+            or not 0 <= s0 <= s1 <= log_rows \
+            or s1 - s0 > PASS_TILE_LOG or (bitrev and s0) \
+            or (s1 and tw.shape[1] < rows // 2):
+        raise ValueError("bad NTT pass shape")
+    mul_n = 0
+    if mul is not None:
+        check_operand(mul, 16, a.device)
+        mul_n = mul.shape[1]
+        if mul_n not in (1, rows * lanes):
+            raise ValueError("an NTT pass multiplies by a scalar or an "
+                             "(R, lanes) table")
+    if not use_kernel(a):
+        out = ntt_pass_plain(
+            P, unpack_words(a) if packed_in else a.to(torch.int64),
+            tw.to(torch.int64), log_rows, lanes, s0, s1, bitrev,
+            None if mul is None else mul.to(torch.int64), transpose)
+        return pack_words(out) if packed_out else out.to(torch.int32)
+    out = torch.empty((8 if packed_out else 16, N), dtype=torch.int32,
+                      device=a.device)
+    rc = load_library().zk_ntt_pass(
+        a.data_ptr(), out.data_ptr(), N // (rows * lanes), log_rows,
+        lanes.bit_length() - 1, s0, s1, int(bitrev), tw.data_ptr(),
+        tw.shape[1], None if mul is None else mul.data_ptr(), mul_n,
+        int(transpose), int(packed_in), int(packed_out), stream())
+    check(rc, "ntt_pass")
+    count("ntt_pass")
     return out

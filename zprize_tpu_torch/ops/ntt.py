@@ -1,36 +1,36 @@
 """NTT / INTT / coset variants over Fr on limbs-leading (L, ..., n)
 tensors — the port of `zprize_tpu/ops/ntt.py`, with its algorithm and its
 threshold. Natural order in and out. `transform_last` takes the JAX
-package's three branches:
+package's three branches, and runs every radix-2 transform in them as a
+few fused passes (`kernels.ntt_pass`, `_sub_transform`): each pass runs
+several consecutive stages of the radix-2 DIT schedule on a tile held in
+shared memory, where K5 (`kernels.butterfly_stage`) took one launch over
+device memory a stage. Stage s pairs row blk*2h + j with blk*2h + h + j
+(h = 2^(s-1)); one twiddle table w^j (j < n/2) serves every stage
+(stride n / 2h).
 
   * log n < FOUR_STEP_MIN_LOG (13): radix-2 over the last axis (JAX's
-    `_core`): one bit-reversal gather, then one launch of the butterfly
-    kernel (K5) a stage over the whole flattened batch. Stage s pairs
-    column blk*2h + j with blk*2h + h + j (h = 2^(s-1)); one twiddle
-    table w^j (j < n/2) serves every stage (stride n / 2h); the inverse
-    ends with one 1/n product (K1).
+    `_core`) of the whole flattened batch: the first pass multiplies the
+    inverse's input by 1/n and gathers the bit-reversed columns; one pass
+    up to 2^11, two at 2^12.
   * four-step, n = n1 * n2 with n1 = 2^floor(log n / 2) (JAX
     `transform_last`'s last branch): input index i = i1 + n1*i2, viewed
     as (L, ..., n2, n1) [i2, i1]; a radix-2 transform of size n2 along
-    axis -2 with n1 lanes (JAX's `_core_axis2`: a row gather, then one
-    K5 launch a stage with the lane stride) -> [k2, i1]; times the mid
-    twiddles w^(i1*k2) (K1; the inverse table also holds 1/n, so no
-    other 1/n pass runs); one transposing copy that also bit-reverses
-    the rows of the next transform -> [i1, k2]; a size-n1 transform
-    along axis -2 with n2 lanes -> [k1, k2], which read row-major is
-    X[k2 + n2*k1], natural order.
+    axis -2 with n1 lanes (JAX's `_core_axis2`), whose last pass stores
+    [k2, i1] transposed -> [i1, k2]; a size-n1 transform along axis -2
+    with n2 lanes, whose first pass multiplies [i1, k2] by the mid
+    twiddles w^(i1*k2) as it reads them (the inverse table also holds
+    1/n, so no other 1/n product runs) -> [k1, k2], which read row-major
+    is X[k2 + n2*k1], natural order. At n = 2^22 that is two passes a
+    side, four over device memory.
   * nested split, log n2 >= 13 (log n >= 26; the prover's largest n is
     2^22): transposes and recursive `transform_last` calls, as in JAX.
     Its inverse multiplies by n once, since both the sub-transforms and
     the twiddles fold 1/n.
-
-K5 along axis -2 has a warp read 32 neighbouring lanes of each limb row
-and one twiddle, where a flat stage reads up to 32 twiddles.
 """
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from ..params import R_MOD, FR_GENERATOR
@@ -44,24 +44,16 @@ from . import poly
 FOUR_STEP_MIN_LOG = 13
 
 
-def _bit_reverse_indices(n):
-    log_n = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
-
-
 class NttPlan:
     """Per-domain tables. Below FOUR_STEP_MIN_LOG: the radix-2 twiddles
-    `tw` / `itw` (w^j, w^-j for j < n/2) and the bit-reversal `bitrev`.
+    `tw` / `itw` (w^j, w^-j for j < n/2).
     From it up: the sub-plans `p1` (n1) and `p2` (n2) and the mid
-    twiddles `tw_f` / `tw_i`, each (L, n2, n1) with w^(+-i1*k2) at [k2,
-    i1], `tw_i` times 1/n (the words of JAX's `_build_four_step`); no
-    radix-2 table. Both kinds keep omega, omega_inv and n_inv, and build
-    the coset tables when first asked. Every table is built here, so a
-    plan needs no `warm` as the JAX one does before a jit."""
+    twiddles `tw_f` / `tw_i`, each (L, n1, n2) with w^(+-i1*k2) at [i1,
+    k2], `tw_i` times 1/n (the words of JAX's `_build_four_step`,
+    transposed); no radix-2 table. Both kinds keep omega, omega_inv and
+    n_inv, and build the coset tables when first asked. Every table is
+    built here, so a plan needs no `warm` as the JAX one does before a
+    jit."""
 
     def __init__(self, log_n: int, device):
         self.log_n = log_n
@@ -72,14 +64,13 @@ class NttPlan:
         self.n_inv = FR.scalar(pow(n, -1, R_MOD), device)
         self.log_n1 = log_n // 2
         self.log_n2 = log_n - self.log_n1
-        self.tw = self.itw = self.bitrev = None
+        self.tw = self.itw = None
         self.p1 = self.p2 = self.tw_f = self.tw_i = None
         if log_n < FOUR_STEP_MIN_LOG:
             half = max(n // 2, 1)
             self.tw = poly.powers(FR, FR.scalar(self.omega, device), half)
             self.itw = poly.powers(FR, FR.scalar(self.omega_inv, device),
                                    half)
-            self.bitrev = torch.from_numpy(_bit_reverse_indices(n)).to(device)
         else:
             self.p1 = get_plan(self.log_n1, device)
             self.p2 = get_plan(self.log_n2, device)
@@ -88,14 +79,14 @@ class NttPlan:
         self._coset = None
 
     def _mid_twiddles(self, w, scale):
-        """(L, n2, n1) with scale * w^(i1*k2) at [k2, i1] (scale None: 1):
-        the powers of each w^k2, made from powers (no n-long table and no
+        """(L, n1, n2) with scale * w^(i1*k2) at [i1, k2] (scale None: 1):
+        the powers of each w^i1, made from powers (no n-long table and no
         gather)."""
         n1, n2 = 1 << self.log_n1, 1 << self.log_n2
-        w_k2 = poly.powers(FR, FR.scalar(w, self.device), n2)   # (L, n2)
+        w_i1 = poly.powers(FR, FR.scalar(w, self.device), n1)   # (L, n1)
         start = None if scale is None else \
-            scale[:, None].expand(FR.L, n2)
-        return poly.powers(FR, w_k2, n1, start=start)
+            scale[:, None].expand(FR.L, n1)
+        return poly.powers(FR, w_i1, n2, start=start)
 
     @property
     def coset_tables(self):
@@ -118,6 +109,28 @@ def get_plan(log_n: int, device) -> NttPlan:
     return _plan(log_n, str(canonical(device)))
 
 
+def _sub_transform(sub: NttPlan, x, invert, lanes, mul=None,
+                   transpose=False, packed_in=False, packed_out=False):
+    """The radix-2 transform of size sub.n (sub a radix-2 plan) along the
+    rows of x, (L, N) the flattened (L, ..., sub.n, lanes), natural order
+    in and out, in the fused passes of `kernels.ntt_pass_plan`: the first
+    pass multiplies x by `mul` ((L, 1) or (L, sub.n * lanes)) and gathers
+    the bit-reversed rows, the last, with `transpose`, stores (L, ...,
+    lanes, sub.n). Between two passes, and where `packed_in` /
+    `packed_out` say so at the ends, the array is (8, N) packed words
+    (`kernels.pack_words`)."""
+    tw = sub.itw if invert else sub.tw
+    passes = kernels.ntt_pass_plan(sub.log_n, lanes)
+    for k, (s0, s1) in enumerate(passes):
+        last = k == len(passes) - 1
+        x = kernels.ntt_pass(FR.P, x, tw, sub.log_n, lanes, s0, s1,
+                             bitrev=k == 0, mul=mul if k == 0 else None,
+                             transpose=transpose and last,
+                             packed_in=packed_in or k > 0,
+                             packed_out=packed_out or not last)
+    return x
+
+
 def transform_last(plan: NttPlan, a, invert: bool):
     """Length-plan.n transform along the LAST axis of (L, ..., n); natural
     order in and out; invert folds in 1/n. The branch is the plan's:
@@ -126,22 +139,18 @@ def transform_last(plan: NttPlan, a, invert: bool):
     L, n = a.shape[0], plan.n
     assert a.shape[-1] == n
     if plan.p1 is None:
-        # JAX's `_core`, then 1/n
-        x = a.index_select(a.dim() - 1, plan.bitrev).reshape(L, -1)
-        tw = plan.itw if invert else plan.tw
-        for s in range(1, plan.log_n + 1):
-            x = kernels.butterfly_stage(FR.P, x, tw, 1 << (s - 1), n >> s)
-        out = x.reshape(a.shape)
-        if invert:
-            out = mont.mont_mul(FR, out, plan.n_inv)
-        return out
+        # JAX's `_core`, 1/n at the first pass's load
+        x = a.reshape(L, -1).contiguous()
+        return _sub_transform(plan, x, invert, 1,
+                              plan.n_inv[:, None] if invert else None
+                              ).reshape(a.shape)
     n1, n2 = 1 << plan.log_n1, 1 << plan.log_n2
-    tw = plan.tw_i if invert else plan.tw_f                 # (L, n2, n1)
+    tw = plan.tw_i if invert else plan.tw_f                 # (L, n1, n2)
     if plan.p2.p1 is not None:
         # [..., i1, i2] -> [..., i1, k2] -> [..., k2, i1] -> [..., k2, k1]
         b = transform_last(plan.p2, a.unflatten(-1, (n2, n1))
                            .transpose(-1, -2), invert)
-        c = mont.mont_mul(FR, b.transpose(-1, -2).contiguous(), tw)
+        c = mont.mont_mul(FR, b, tw).transpose(-1, -2).contiguous()
         del b
         r = transform_last(plan.p1, c, invert)
         del c
@@ -150,24 +159,17 @@ def transform_last(plan: NttPlan, a, invert: bool):
         # tw_i folds 1/n, and the sub-transforms 1/n2 * 1/n1 = 1/n again
         return mont.mont_mul(FR, out, FR.scalar(n, a.device)) if invert \
             else out
-    # JAX's `_core_axis2` on [..., i2, i1] (size n2, n1 lanes), the mid
-    # twiddles, then on the transposed [..., i1, k2] (size n1, n2 lanes).
-    # Written as one loop so that no caller holds a stage's input: at
-    # most `a`, the current and the next n-sized tensor are alive.
-    x = a.unflatten(-1, (n2, n1))                           # [i2, i1]
-    for first, sub in ((True, plan.p2), (False, plan.p1)):
-        # the row gather bit-reverses, and after the twiddles it is also
-        # the one transposing copy
-        x = x.index_select(x.dim() - 2, sub.bitrev)
-        shape, lanes = x.shape, x.shape[-1]
-        x = x.reshape(L, -1)
-        stw = sub.itw if invert else sub.tw
-        for s in range(1, sub.log_n + 1):
-            x = kernels.butterfly_stage(FR.P, x, stw, 1 << (s - 1),
-                                        sub.n >> s, lanes)
-        x = x.reshape(shape)                                # [k2, i1]
-        if first:
-            x = mont.mont_mul(FR, x, tw).transpose(-1, -2)  # [i1, k2]
+    # JAX's `_core_axis2` on [..., i2, i1] (size n2, n1 lanes), its last
+    # pass storing [..., k2, i1] transposed as [..., i1, k2]; then, times
+    # the mid twiddles w^(i1*k2) as it is read, on that (size n1, n2
+    # lanes) -> [..., k1, k2]. At most `a`, the current and the next
+    # n-sized tensor are alive, and all but `a` and the result are packed
+    # (half the size).
+    x = a.reshape(L, -1).contiguous()                       # [i2, i1]
+    x = _sub_transform(plan.p2, x, invert, n1, transpose=True,
+                       packed_out=True)
+    x = _sub_transform(plan.p1, x, invert, n2, tw.reshape(L, -1),
+                       packed_in=True)                      # [k1, k2]
     return x.reshape(a.shape)                               # X[k2 + n2*k1]
 
 
