@@ -2,12 +2,13 @@
 setting the limit of `correct` (the benchmark's own runs never run it):
 
     python3 portbench/control.py --workload h15-prove --seeds 11,12,13 \
-        --seconds 3 [--break other_leaves,answer_altered]
+        --seconds 3 [--break control,answer_altered]
 
-For each seed it runs the cell once as it is and once with each hook of
-`faults.py` named by --break, and prints a line of the numbers compared
-(and the window's proofs) for each run. The program's sound runs give the
-lower readings, the broken ones the upper."""
+For each seed it runs the cell once as it is and once with each hook named
+by --break (`faults.hooks`: "control", the control that the cell's system
+names, or a hook of the system or of `faults.py` by its name), and prints
+a line of the numbers compared (and the window's proofs) for each run. The
+program's sound runs give the lower readings, the broken ones the upper."""
 
 import time
 
@@ -25,9 +26,12 @@ def main(argv, root):
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
-    ap.add_argument("--break", dest="breaks", default="other_leaves")
+    ap.add_argument("--break", dest="breaks", default="control")
     ap.add_argument("--sound", type=int, choices=(0, 1), default=1)
     args = ap.parse_args(argv)
+    bench = harness.Bench(root)
+    table = faults.hooks(
+        bench.config(bench.cell(args.workload)["config"])["system"])
     kinds = ([None] if args.sound else []) + [
         b for b in args.breaks.split(",") if b]
     for seed in (int(s) for s in args.seeds.split(",")):
@@ -35,7 +39,7 @@ def main(argv, root):
             t0 = time.monotonic()
             line, run, verdict = harness.run_cell(
                 root, args.workload, seed, args.seconds, False, t0,
-                hook=faults.HOOKS[kind] if kind else None)
+                hook=table[kind] if kind else None)
             print(json.dumps({
                 "control": kind or "sound", "workload": args.workload,
                 "seed": seed, "correct": line["correct"],

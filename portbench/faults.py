@@ -1,30 +1,20 @@
 """Ways to break the timed path, for the control and the tests: each is a
-hook that `systems/merkle.py` calls in every proving process, as
-hook("setup") before the set-up and hook("window") before the window,
-and each must make the reference reject the run's proofs. A hook that
-patches returns the function that undoes it, which `systems/merkle.py` calls
-once its window is over.
+hook that `window.py` calls in every proving process, as hook("setup")
+before the set-up and hook("window") before the window, and each must
+make the reference reject the run's proofs. A hook that patches returns
+the function that undoes it, which `window.py` calls once its window is
+over.
 
-  * `other_leaves`, the control: the configuration guarantees a proof of
-    the witness's own leaves; here the program proves the tree of leaves
-    whose first leaf is one more, a valid proof of another root;
+A system's control breaks a guarantee that its configuration states, so
+it lives with the system: `systems/<system>.py` names it (`CONTROL`) among
+its own hooks (`HOOKS`). The faults here fit every system:
+
   * `answer_altered`: each proof's first wire evaluation is one more than
     the prover computed, where the proof is produced;
   * `exchange_left_out`: on ranks, every `all_gather` of the sharded
     prover returns the rank's own part in each place (no exchange)."""
 
-
-def other_leaves(stage):
-    if stage != "setup":
-        return
-    from portbench import inputs
-    orig = inputs.leaf_sets
-
-    def leaf_sets(seed, witnesses, m):
-        sets = orig(seed, witnesses, m)
-        return [[s[0] + 1] + s[1:] for s in sets]
-    inputs.leaf_sets = leaf_sets
-    return lambda: setattr(inputs, "leaf_sets", orig)
+import importlib
 
 
 def answer_altered(stage):
@@ -56,5 +46,12 @@ def exchange_left_out(stage):
     return lambda: setattr(mesh, "_all_gather", orig)
 
 
-HOOKS = {"other_leaves": other_leaves, "answer_altered": answer_altered,
+HOOKS = {"answer_altered": answer_altered,
          "exchange_left_out": exchange_left_out}
+
+
+def hooks(system):
+    """Every hook a cell of `system` can be broken by, by name: the
+    system's own, the ones above, and "control", the system's control."""
+    mod = importlib.import_module("portbench.systems." + system)
+    return dict(mod.HOOKS, **HOOKS, control=mod.HOOKS[mod.CONTROL])

@@ -5,9 +5,10 @@ result line.
 Everything is found by the names in `BENCHMARK.json`, so a cell, a
 configuration, a traffic mix or a metric is added as files of its own:
   * the cell (`workloads`) names a configuration and a mix;
-  * the configuration's file (`configs[].file`) names its system, a
-    module `portbench/systems/<system>.py` with
-    `run(config, traffic, seed, seconds, trace, device, hook)`;
+  * the configuration's file (`configs[].file`) names its system: its
+    set-up `portbench/systems/<system>.py` (`setup`, `CONTROL`, `HOOKS`),
+    which `window.py` runs, its seeded inputs `recipes/<system>.py`, and
+    its reference `reference/<system>.py` (`judge`, `TIMEOUT_S`);
   * the mix is `portbench/traffic/<traffic>.json`, with
     `portbench/traffic/<traffic>.py` beside it where the mix needs code
     (its order, arrivals or end: `inputs.Mix`);
@@ -18,10 +19,11 @@ With `--trace 0` the line holds the cell's end-to-end metrics, with
 `--trace 1` its per-layer ones (a metric's `workloads`, where given,
 lists the cells it is read in).
 
-The window's output is judged after the window by `reference/check.py`
-in a process of its own (plain Python; no torch, no port). The numbers it
-compares are printed beside their limits as the last lines of standard
-error and under "compared", the result line's last key."""
+The window's output is judged after the window by the system's reference
+in a process of its own (plain Python; no torch, no port; see
+`reference/check.py`). The numbers it compares are printed beside their
+limits as the last lines of standard error and under "compared", the
+result line's last key."""
 
 import importlib
 import importlib.util
@@ -31,10 +33,11 @@ import subprocess
 import sys
 from types import SimpleNamespace
 
+from . import window
+
 # modules that must not be loaded in the process that prints the result:
 # the JAX stack and the JAX package (top-level names, compared whole)
 FORBIDDEN = ("jax", "jaxlib", "flax", "zprize_tpu")
-REFERENCE_TIMEOUT_S = 240
 
 # the numbers the reference's verdict gives, each with its limit
 LIMITS = {"rejected_proofs": 0}
@@ -89,14 +92,17 @@ def forbidden_modules():
 
 
 def judge(root, config, traffic, seed, proofs):
-    """The reference's verdict on `proofs` ([[witness, hex], ...])."""
-    job = {"height": config["height"], "seed": seed,
+    """The verdict of the reference of `config`'s system on `proofs`
+    ([[witness, hex], ...])."""
+    job = {"config": config, "seed": seed,
            "witnesses": traffic["witnesses"], "proofs": proofs}
+    module = "portbench.reference." + config["system"]
+    limit = importlib.import_module(module).TIMEOUT_S
     env = dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1",
                MKL_NUM_THREADS="1")
-    p = subprocess.run([sys.executable, "-m", "portbench.reference.check"],
+    p = subprocess.run([sys.executable, "-m", module],
                        input=json.dumps(job), capture_output=True, text=True,
-                       cwd=root, env=env, timeout=REFERENCE_TIMEOUT_S)
+                       cwd=root, env=env, timeout=limit)
     if p.returncode != 0:
         sys.stderr.write(p.stderr[-4000:])
         raise RuntimeError(f"the reference exited with {p.returncode}")
@@ -112,8 +118,7 @@ def run_cell(root, workload, seed, seconds, trace, t_start, device="cuda",
     cell = bench.cell(workload)
     config = bench.config(cell["config"])
     traffic = bench.traffic(cell["traffic"])
-    system = importlib.import_module("portbench.systems." + config["system"])
-    out = system.run(config, traffic, seed, seconds, trace, device, hook)
+    out = window.run(config, traffic, seed, seconds, trace, device, hook)
     on_card = None not in out["peak_bytes"]
     run = SimpleNamespace(
         chips=cell["chips"], setup_s=out["window_t0"] - t_start,

@@ -1,11 +1,9 @@
-"""The inputs of a run, made from its seed, and the order a traffic mix
-sends them in. The run hands them to the program and the reference makes
-them again from the same seed: numpy and plain Python only.
+"""The inputs every system shares, made from the run's seed, and the
+order a traffic mix sends them in. The run hands them to the program and
+the reference makes them again from the same seed: numpy and plain Python
+only. A system's own inputs (the Merkle tree's leaves) are its recipe,
+`recipes/<system>.py`, drawn from the streams `rng` gives.
 
-  * witness k's leaves: m values of 31 random bytes each (below 2^248, so
-    every leaf is a canonical Fr element), drawn leaf by leaf as
-    `zprize_tpu_torch/tools/merkle_setup.seeded_leaves` draws them, from
-    the stream (seed, 0, k);
   * tau, the SRS's secret: 32 random bytes mod r from the stream (seed,
     1), never 0;
   * the order and the arrivals: `Mix`, a traffic mix's parameters and,
@@ -20,27 +18,17 @@ import time
 import numpy as np
 
 R_MOD = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
-LEAF_BYTES = 31
 
 
-def _rng(seed, *key):
+def rng(seed, *key):
+    """The stream `key` of `seed`: (0, k) is witness k's, (1,) tau's."""
     # any whole number: SeedSequence takes non-negative entropy of any size
     return np.random.default_rng(np.random.SeedSequence(
         seed % (1 << 128), spawn_key=key))
 
 
-def leaf_sets(seed, witnesses, m):
-    """`witnesses` lists of m leaves (Python ints)."""
-    out = []
-    for k in range(witnesses):
-        rng = _rng(seed, 0, k)
-        out.append([int.from_bytes(rng.bytes(LEAF_BYTES), "little")
-                    for _ in range(m)])
-    return out
-
-
 def tau(seed):
-    t = int.from_bytes(_rng(seed, 1).bytes(32), "little") % R_MOD
+    t = int.from_bytes(rng(seed, 1).bytes(32), "little") % R_MOD
     return t or 1
 
 

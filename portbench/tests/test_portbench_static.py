@@ -52,20 +52,43 @@ def test_nothing_imports_jax_or_the_jax_package():
     assert "zprize_tpu_torch".split(".")[0] not in FORBIDDEN
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    ref = os.path.join(PB, "reference")
+def _assert_the_reference_imports_nothing_of_the_program(pb):
+    """The rule for `reference/` and `recipes/` of the benchmark folder
+    `pb`: the standard library's plain modules and numpy, and out of
+    `reference/` only the shared inputs and, in a system's reference
+    `reference/<system>.py`, its own system's recipe."""
+    ref = os.path.join(pb, "reference")
     allowed = {"json", "multiprocessing", "os", "sys", "time", "numpy",
                "struct", "math", "random", "hashlib", "dataclasses",
                "typing", "collections", "functools"}
     for p in _py_files(ref):
         depth = os.path.relpath(p, ref).count(os.sep)
+        system = os.path.basename(p)[:-3] if depth == 0 and os.path.exists(
+            os.path.join(pb, "systems", os.path.basename(p))) else None
         for name, level, names in _imports(p):
             if level == 0:
                 assert name in allowed, (p, name)
             elif level > depth + 1:
-                # out of `reference/`: only the inputs' recipe
-                assert level == depth + 2 and name == "" \
-                    and names == ["inputs"], (p, level, name, names)
+                assert level == depth + 2 and (
+                    (name, names) == ("", ["inputs"])
+                    or (system and (name, names) == ("recipes", [system]))
+                ), (p, level, name, names)
+    for p in _py_files(os.path.join(pb, "recipes")):
+        for name, level, names in _imports(p):
+            assert (level, name) == (0, "numpy") or (
+                (level, name, names) == (2, "", ["inputs"])), (p, name)
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    _assert_the_reference_imports_nothing_of_the_program(PB)
+
+
+def test_the_added_systems_reference_imports_nothing_of_the_program():
+    """The toy system that `test_portbench_run.py` adds (`tests/room/`,
+    laid out as the benchmark folder is) keeps the same rule."""
+    room = os.path.join(PB, "tests", "room")
+    assert os.path.exists(os.path.join(room, "reference", "circuit_toy.py"))
+    _assert_the_reference_imports_nothing_of_the_program(room)
 
 
 def _copy_bench(tmp_path):

@@ -17,7 +17,7 @@ wrappers of the benchmark's own, as `zprize_tpu_torch/tools/timeline.py`
 wraps the program:
 
   * "proof" / "proof_end": around each proof of the window (the
-    system's own marks, `systems/merkle.py`);
+    window's own marks, `window.py`);
   * "round:<label>": where the prover ends a round
     (`prover_torch._round_marker`, its round lines, here without the
     sync it makes when `ProverConfig.log` is set);
